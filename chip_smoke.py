@@ -7,10 +7,12 @@ Needs one CUDA card (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit's ``nvcc``.  It builds every hand-written kernel from the sources in
 this checkout, holds each against its plain PyTorch version on the card,
 runs the engine at Llama-3-8B width on the card against the same engine on
-the CPU (depth 2), then serves a few requests at full width and depth
-through ``ContinuousBatcher`` → ``BatchedDecoder`` → ``RelationalEngine``
-and checks that every GEMM of that run went through the kernel.  Any
-failure exits non-zero.  The last line is
+the CPU (depth 2, a single sequence and a batched decoder), then serves a
+few requests at full width and depth through ``ContinuousBatcher`` →
+``BatchedDecoder`` → ``RelationalEngine`` and checks that every GEMM of that
+run went through K1 ``chunked_matmul``, every decode attention through K2
+``paged_attention`` and every prefill attention through K3
+``flash_attention``.  Any failure exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
 with their launches, errors and times (the per-shape times are printed in
 phase 3).
@@ -19,10 +21,12 @@ phase 3).
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +53,21 @@ MAIN_NK = {"o/Q": (4096, 4096), "K/V": (1024, 4096), "W1/W3": (14336, 4096),
 STEP_COUNTS = {"o/Q": 2 * N_LAYERS, "K/V": 2 * N_LAYERS,
                "W1/W3": 2 * N_LAYERS, "W2": N_LAYERS, "lm_head": 1}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# attention at Llama-3-8B widths over a 512-row cache (phase 5's max_len)
+HEAD_DIM, MAX_LEN = D_MODEL // N_HEADS, 512
+# K2: (B, lengths) per decode shape; K3: prompt lengths T
+PAGED_MAIN = [(1, [33]), (1, [72]), (1, [512]), (4, [33] * 4), (4, [72] * 4),
+              (4, [512] * 4), (4, [33, 72, 100, 512])]
+FLASH_MAIN = [32, 64, 512]
+# the shapes the kernels JSON line reports: one decode tick of phase 5's
+# mixed batch, one prefill of a 64-token prompt (32 launches each)
+PAGED_STEP, FLASH_STEP = (4, [33, 72, 100, 512]), 64
+# the sweeps of tests/test_kernels.py
+PAGED_SWEEP = [[5, 17, 32], [1, 1, 1], [32, 8, 24]]
+FLASH_SWEEP = [(32, 32, 16, True), (64, 64, 32, True), (32, 64, 16, False),
+               (128, 128, 64, True)]
+KERNELS = ("chunked_matmul", "paged_attention", "flash_attention")
 
 
 def log(msg: str = "") -> None:
@@ -93,15 +112,22 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels import build_chunked_matmul
+    """One nvcc per kernel source, all started together."""
+    from repro_torch.kernels import _build
     log("== phase 2: build")
-    t0 = time.perf_counter()
-    lib = build_chunked_matmul()
-    log(f"K1 chunked_matmul built in {time.perf_counter() - t0:.3f} s: "
-        f"{lib.relative_to(ROOT) if lib.is_relative_to(ROOT) else lib}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+
+    def build(name):
+        t0 = time.perf_counter()
+        return _build.build(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build, KERNELS))
+    for i, (name, (lib, secs)) in enumerate(zip(KERNELS, built)):
+        log(f"K{i + 1} {name} built in {secs:.3f} s: "
+            f"{lib.relative_to(ROOT) if lib.is_relative_to(ROOT) else lib}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 def phase_kernels():
@@ -164,8 +190,166 @@ def phase_kernels():
     return rows, step, max_err
 
 
+def _bound(nbytes: float, flops: float):
+    """(bound in ms, what bounds it) on the H100 SXM peaks."""
+    t_bytes, t_ops = nbytes / PEAKS[0], flops / PEAKS[1]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _sweep_paged_case(gen, dev, dtype, lens, unmapped=()):
+    """tests/test_kernels.py's K2 sweep: B = len(lens), H 8, Hkv 2, d 32,
+    pages of 8 in a pool of 16, 4 pages per sequence, the pages below each
+    length mapped in shuffled order except the (seq, page) pairs in
+    ``unmapped``."""
+    B, H, Hkv, d, page, P, MP = len(lens), 8, 2, 32, 8, 16, 4
+    q = torch.randn(B, H, d, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(P, page, Hkv, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(P, page, Hkv, d, generator=gen, device=dev).to(dtype)
+    pt = torch.full((B, MP), -1, dtype=torch.int32)
+    used = iter(np.random.default_rng(sum(lens)).permutation(P).tolist())
+    for b, n in enumerate(lens):
+        for i in range(-(-n // page)):
+            pt[b, i] = -1 if (b, i) in unmapped else next(used)
+    return q, kp, vp, pt.to(dev), torch.tensor(lens, dtype=torch.int32,
+                                               device=dev)
+
+
+def phase_attention_kernels(flush):
+    """K2 and K3 against their plain versions at the test sweeps and the
+    main path's shapes, with kernel, plain, library and bound times."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels import flash_attention, paged_attention, ref
+    log("== phase 3: K2 paged_attention and K3 flash_attention against their "
+        "plain versions")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err = {"paged_attention": 0.0, "flash_attention": 0.0}
+
+    def check(name, got, want, dtype):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        e = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.float32:
+            err[name] = max(err[name], e)
+        return e
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for lens in PAGED_SWEEP:
+            args = _sweep_paged_case(gen, dev, dtype, lens)
+            check("paged_attention", paged_attention(*args),
+                  ref.paged_attention(*args), dtype)
+        for T, S, d, causal in FLASH_SWEEP:
+            q, k, v = (torch.randn(2, 2, n, d, generator=gen,
+                                   device=dev).to(dtype) for n in (T, S, S))
+            check("flash_attention", flash_attention(q, k, v, causal),
+                  ref.flash_attention(q, k, v, causal), dtype)
+    log(f"K2 sweep lengths {PAGED_SWEEP}, K3 sweep (T, S, d, causal) "
+        f"{FLASH_SWEEP}, f32 and bf16: ok")
+    # an unmapped page below the length is skipped: sequence 0 (length 20)
+    # without its page 1 is page 0's 8 slots and page 2's first 4
+    q, kp, vp, pt, ln = _sweep_paged_case(gen, dev, torch.float32,
+                                          [20, 17, 32], unmapped={(0, 1)})
+    got = paged_attention(q, kp, vp, pt, ln)
+    e = check("paged_attention", got[:1], ref.paged_attention(
+        q[:1], kp, vp, pt[:1, [0, 2]], torch.tensor([12], device=dev)),
+        torch.float32)
+    check("paged_attention", got[1:], ref.paged_attention(
+        q[1:], kp, vp, pt[1:], ln[1:]), torch.float32)
+    log(f"K2 skips an unmapped page below the length: ok (max|err| "
+        f"{e:.2e} against the plain version over the mapped pages)")
+
+    H, Hkv, d, S = N_HEADS, N_KV, HEAD_DIM, MAX_LEN
+    rows = []
+
+    def row(name, shape, kernel, plain, library, nbytes, flops):
+        got, want, lib = kernel(), plain(), library()
+        e = check(name, got, want, torch.float32)
+        bound, by = _bound(nbytes, flops)
+        r = {"kernel": name, "shape": shape,
+             "kernel_ms": time_ms(kernel, flush),
+             "plain_ms": time_ms(plain, flush),
+             "library_ms": time_ms(library, flush),
+             "bound_ms": bound, "bound_by": by, "max_abs_err": e,
+             "library_err": (lib.float() - want.float()).abs().max().item()}
+        rows.append(r)
+        log(f"  {name} {shape:24s} kernel {r['kernel_ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+            f"bound {bound * 1e3:.3f} us ({by})  max|err| {e:.2e}  library "
+            f"max|err| {r['library_err']:.2e}")
+        return r
+
+    log(f"main-path shapes, f32: H {H}, Hkv {Hkv}, d {d}, cache {S} rows")
+    step = {}
+    for B, lens in PAGED_MAIN:
+        # the executor's view of a [B, S, Hkv, d] cache: pages of 64 rows,
+        # identity page table, lengths = positions + 1
+        cache_k = torch.randn(B, S, Hkv, d, generator=gen, device=dev)
+        cache_v = torch.randn(B, S, Hkv, d, generator=gen, device=dev)
+        q = torch.randn(B, H, d, generator=gen, device=dev)
+        page = math.gcd(S, 64)
+        kp = cache_k.view(B * S // page, page, Hkv, d)
+        vp = cache_v.view(B * S // page, page, Hkv, d)
+        pt = torch.arange(B * S // page, dtype=torch.int32,
+                          device=dev).view(B, S // page)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[
+            :, None, None, :]
+        kl, vl = cache_k.permute(0, 2, 1, 3), cache_v.permute(0, 2, 1, 3)
+        live = sum(lens)
+        r = row("paged_attention", f"B={B} len={lens}",
+                lambda: paged_attention(q, kp, vp, pt, ln),
+                lambda: ref.paged_attention(q, kp, vp, pt, ln),
+                lambda: sdpa(q[:, :, None], kl, vl, attn_mask=mask,
+                             enable_gqa=True)[:, :, 0],
+                4 * (2 * live * Hkv * d + 2 * B * H * d), 4 * H * d * live)
+        if (B, lens) == PAGED_STEP:
+            step["paged_attention"] = r
+        del cache_k, cache_v, kp, vp, kl, vl
+    for T in FLASH_MAIN:
+        # the executor's views: q [1, H, T, d] of a [T, H, d] table, k/v
+        # [1, Hkv, S, d] of the [S, Hkv, d] cache tables
+        q = torch.randn(T, H, d, generator=gen,
+                        device=dev).permute(1, 0, 2)[None]
+        k = torch.randn(S, Hkv, d, generator=gen,
+                        device=dev).permute(1, 0, 2)[None]
+        v = torch.randn(S, Hkv, d, generator=gen,
+                        device=dev).permute(1, 0, 2)[None]
+        pairs = sum(min(t + 1, S) for t in range(T))
+        r = row("flash_attention", f"T={T} S={S}",
+                lambda: flash_attention(q, k, v, True),
+                lambda: ref.flash_attention(q, k, v, True),
+                lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                4 * (2 * T * H * d + 2 * min(T, S) * Hkv * d),
+                4 * H * d * pairs)
+        if T == FLASH_STEP:
+            step["flash_attention"] = r
+    for name, r in step.items():
+        log(f"one {'decode tick' if name == 'paged_attention' else 'prefill'}"
+            f"'s {N_LAYERS} {name} launches at {r['shape']}: kernel "
+            f"{N_LAYERS * r['kernel_ms']:.3f} ms, plain "
+            f"{N_LAYERS * r['plain_ms']:.3f} ms, library "
+            f"{N_LAYERS * r['library_ms']:.3f} ms, bound "
+            f"{N_LAYERS * r['bound_ms']:.3f} ms")
+    return rows, step, err
+
+
+def _assert_logits(lg_gpu, lg_cpu):
+    """The GPU-vs-CPU limits: logits within 1e-3, greedy tokens equal
+    where the CPU's top-2 margin exceeds 1e-3."""
+    np.testing.assert_allclose(lg_gpu, lg_cpu, rtol=1e-3, atol=1e-3)
+    for g, c in zip(np.atleast_2d(lg_gpu), np.atleast_2d(lg_cpu)):
+        top2 = np.sort(c)[-2:]
+        if top2[1] - top2[0] > 1e-3:
+            assert int(np.argmax(g)) == int(np.argmax(c)), (g, c)
+    return float(np.abs(lg_gpu - lg_cpu).max())
+
+
 def phase_engine_parity():
+    import repro_torch.serving.engine as engine_mod
     from repro_torch.core.llama_graph import LlamaSpec, init_llama_params
+    from repro_torch.kernels import flash_attention, paged_attention
     from repro_torch.serving.engine import RelationalEngine
     log("== phase 4: engine at Llama-3-8B width, depth 2: GPU against CPU")
     spec = LlamaSpec(vocab=VOCAB, d_model=D_MODEL, n_layers=2,
@@ -175,6 +359,7 @@ def phase_engine_parity():
     log(f"numpy weights (seed 0): {time.perf_counter() - t0:.1f} s")
     engines = {d: RelationalEngine(spec, params, chunk_size=64, max_len=64,
                                    device=d) for d in ("cuda", "cpu")}
+    paged_attention.launches = flash_attention.launches = 0
     prompt = [int(t) for t in
               np.random.default_rng(1).integers(0, VOCAB, 32)]
     sess = {d: e.start_session(prompt) for d, e in engines.items()}
@@ -186,25 +371,68 @@ def phase_engine_parity():
                 sess[d]["tok"] = gpu_toks[-1]
                 engines[d].session_step(sess[d])
         lg_gpu, lg_cpu = sess["cuda"]["logits"], sess["cpu"]["logits"]
-        np.testing.assert_allclose(lg_gpu, lg_cpu, rtol=1e-3, atol=1e-3)
-        max_diff = max(max_diff, float(np.abs(lg_gpu - lg_cpu).max()))
-        top2 = np.sort(lg_cpu)[-2:]
+        max_diff = max(max_diff, _assert_logits(lg_gpu, lg_cpu))
         gpu_toks.append(int(np.argmax(lg_gpu)))
         cpu_toks.append(int(np.argmax(lg_cpu)))
-        if top2[1] - top2[0] > 1e-3:
-            assert gpu_toks[-1] == cpu_toks[-1], (gpu_toks, cpu_toks)
     log(f"prefill T=32 + 4 decode steps: max|Δlogit| GPU vs CPU "
         f"{max_diff:.3e}")
     log(f"tokens GPU {gpu_toks}")
     log(f"tokens CPU {cpu_toks}")
-    del engines, sess, params
+
+    # a batched decoder: three prompts, four ticks; each pipeline call's
+    # logits are taken from run_pipeline's outputs
+    logits = {}
+    run_pipeline = engine_mod.run_pipeline
+
+    def recording(pipe, env, *args, **kwargs):
+        outs, env = run_pipeline(pipe, env, *args, **kwargs)
+        v = outs["logits"].cols["v"]
+        logits[v.device.type] = v.reshape(v.shape[0], -1)[
+            :, :VOCAB].cpu().numpy()
+        return outs, env
+
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(0, VOCAB, n)]
+               for n in (17, 32, 40)]
+    decs = {d: e.batched_decoder(4) for d, e in engines.items()}
+    bdiff = 0.0
+    engine_mod.run_pipeline = recording
+    try:
+        last = []
+        for s, p in enumerate(prompts):
+            toks = {d: dec.prefill(p, s) for d, dec in decs.items()}
+            bdiff = max(bdiff, _assert_logits(logits["cuda"][-1],
+                                              logits["cpu"][-1]))
+            last.append(toks["cuda"])
+        ticks = []
+        for _ in range(4):
+            toks = {d: dec.decode([0, 1, 2], last) for d, dec in decs.items()}
+            bdiff = max(bdiff, _assert_logits(logits["cuda"][:3],
+                                              logits["cpu"][:3]))
+            ticks.append((toks["cuda"], toks["cpu"]))
+            last = toks["cuda"]
+    finally:
+        engine_mod.run_pipeline = run_pipeline
+    log(f"batched decoder, prompts {[len(p) for p in prompts]}, 4 ticks at "
+        f"bucket 4: max|Δlogit| GPU vs CPU {bdiff:.3e}")
+    log(f"tokens per tick (GPU, CPU) {ticks}")
+    prefills, decodes = 1 + len(prompts), 4 + decs["cuda"].decode_calls
+    assert paged_attention.launches == spec.n_layers * decodes, (
+        paged_attention.launches, decodes)
+    assert flash_attention.launches == spec.n_layers * prefills, (
+        flash_attention.launches, prefills)
+    log(f"GPU side: paged_attention launches {paged_attention.launches} = "
+        f"{spec.n_layers} x {decodes} decode run_pipeline calls, "
+        f"flash_attention launches {flash_attention.launches} = "
+        f"{spec.n_layers} x {prefills} prefill calls")
+    del engines, sess, params, decs
     torch.cuda.empty_cache()
-    return max_diff
+    return max(max_diff, bdiff)
 
 
 def phase_serving(n_layers: int):
     from repro_torch.core.llama_graph import LlamaSpec, init_llama_tensors
-    from repro_torch.kernels import chunked_matmul
+    from repro_torch import kernels
     from repro_torch.serving.engine import RelationalEngine
     from repro_torch.serving.kvcache import PagedKVCache, PagedKVConfig
     from repro_torch.serving.scheduler import ContinuousBatcher, Request
@@ -255,25 +483,34 @@ def phase_serving(n_layers: int):
         eng._batched_decode_pipe(bucket)
     log(f"plans compiled (prefill T={sorted(set(lengths))}, batch buckets "
         f"1, 2, 4) in {time.perf_counter() - t0:.2f} s")
-    chunked_matmul.launches = chunked_matmul.calls = 0
+    wrappers = [getattr(kernels, name) for name in KERNELS]
+    for fn in wrappers:
+        fn.launches = fn.calls = 0
     t0 = time.perf_counter()
     done = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = chunked_matmul.launches
-    pipeline_calls = sched.stats.prefills + dec.decode_calls
+    launches = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+    assert all(fn.calls == fn.launches for fn in wrappers), [
+        (fn.calls, fn.launches) for fn in wrappers]
+    prefills, decodes = sched.stats.prefills, dec.decode_calls
     per_call = 7 * n_layers + 1
     assert len(done) == len(lengths), done
     for req in done:
         assert len(req.generated) == 8, (req.rid, req.generated)
         assert all(0 <= t < VOCAB for t in req.generated)
-    assert launches == per_call * pipeline_calls, (launches, pipeline_calls)
-    assert chunked_matmul.calls == launches
+    assert launches["chunked_matmul"] == per_call * (prefills + decodes), (
+        launches, prefills, decodes)
+    assert launches["paged_attention"] == n_layers * decodes, launches
+    assert launches["flash_attention"] == n_layers * prefills, launches
     log(f"served {len(done)} requests in {wall:.2f} s: ticks "
-        f"{sched.stats.ticks}, prefills {sched.stats.prefills}, decode "
-        f"ticks {dec.decode_calls}, preemptions {sched.stats.preemptions}")
-    log(f"chunked_matmul launches {launches} = {per_call} x "
-        f"{pipeline_calls} run_pipeline calls")
+        f"{sched.stats.ticks}, prefills {prefills}, decode "
+        f"ticks {decodes}, preemptions {sched.stats.preemptions}")
+    log(f"launches: chunked_matmul {launches['chunked_matmul']} = "
+        f"{per_call} x {prefills + decodes} run_pipeline calls, "
+        f"paged_attention {launches['paged_attention']} = {n_layers} x "
+        f"{decodes} decode ticks, flash_attention "
+        f"{launches['flash_attention']} = {n_layers} x {prefills} prefills")
     for req in sorted(done, key=lambda r: r.rid):
         tpot = (req.done_s - req.first_token_s) / (len(req.generated) - 1)
         log(f"  req{req.rid}: prompt {len(req.prompt)} tokens, ttft "
@@ -297,6 +534,14 @@ def profile_tick(dec) -> None:
             for s in range(3)]
     for _ in range(2):  # warm: view cache and allocator
         last = dec.decode([0, 1, 2], last)
+    walls = []
+    for _ in range(5):  # decode returns after the logits' copy to the host
+        t0 = time.perf_counter()
+        last = dec.decode([0, 1, 2], last)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"decode tick (B=3, bucket 4) host wall without the profiler: "
+        f"median of 5 {statistics.median(walls):.2f} ms (min "
+        f"{min(walls):.2f}, max {max(walls):.2f})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
@@ -312,10 +557,11 @@ def profile_tick(dec) -> None:
         log("tick profile: the profiler recorded no device time "
             "(device busy share not measured)")
         return
-    log(f"one decode tick (B=3, bucket 4): wall {wall_us / 1e3:.2f} ms, "
-        f"device busy {busy / 1e3:.2f} ms, idle share "
-        f"{1 - busy / wall_us:.3f}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    log(f"one decode tick (B=3, bucket 4) under the profiler: wall "
+        f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share "
+        f"{1 - busy / wall_us:.3f}; against the unprofiled median wall "
+        f"{1 - busy / 1e3 / statistics.median(walls):.3f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name[:90]}")
 
 
@@ -332,27 +578,50 @@ def main() -> int:
         log(f"{label} wall {time.perf_counter() - t0:.1f} s")
         return result
 
-    name = timed("phase 1", phase_device)
+    card = timed("phase 1", phase_device)
     timed("phase 2", phase_build)
-    rows, step, max_err = timed("phase 3", phase_kernels)
+    rows, step, max_err = timed("phase 3 (K1)", phase_kernels)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    _, attn_step, attn_err = timed("phase 3 (K2, K3)",
+                                   phase_attention_kernels, flush)
+    del flush
     timed("phase 4", phase_engine_parity)
     launches = timed("phase 5", phase_serving, N_LAYERS)
-    log("kernels: K1 chunked_matmul: ok")
+    log("kernels: K1 chunked_matmul: ok, K2 paged_attention: ok, "
+        "K3 flash_attention: ok")
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "chunked_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chunked_matmul.cu",
         "replaces": "src/repro/kernels/chunked_matmul.py:42",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches["chunked_matmul"], "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"],
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows
                                     if r["M"] == 1) else "operations"),
         "library_ms": step["library_ms"],
         "times_are": f"one decode step's {sum(STEP_COUNTS.values())} GEMMs "
-                     f"at M=1, summed from per-shape medians"}]}))
+                     f"at M=1, summed from per-shape medians"}]
+    for name, tpu_line, what in (
+            ("paged_attention", "src/repro/kernels/paged_attention.py:80",
+             "one decode tick"),
+            ("flash_attention", "src/repro/kernels/flash_attention.py:72",
+             "one prefill")):
+        r = attn_step[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": tpu_line, "launches": launches[name],
+            "max_abs_err": attn_err[name],
+            "ms": N_LAYERS * r["kernel_ms"],
+            "plain_ms": N_LAYERS * r["plain_ms"],
+            "bound_ms": N_LAYERS * r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": N_LAYERS * r["library_ms"],
+            "times_are": f"{what}'s {N_LAYERS} launches at {r['shape']}, "
+                         f"{N_LAYERS} x the per-launch median"})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -16,8 +16,18 @@ executed as a fused contraction — the relational join never materialises,
 as a vectorised DB pipelines a hash join into an aggregation.  When the
 contraction is a plain 2-D GEMM (the chunk-key join of every linear layer,
 Q/K/V and lm_head: ``γ_{G_L+G_R, SUM(dot)}(L ⋈_c R)``) it runs on the
-hand-written ``kernels.chunked_matmul``; the attention joins stay
+hand-written ``kernels.chunked_matmul``; other fused contractions run
 ``torch.einsum``.
+
+The attention subplan of every layer — the score join
+``γ_SUM(scale(dot))(Q ⋈ Kcache)``, the causal-mask Filter, the softmax's
+``γ_MAX → π exp → γ_SUM → π div`` and the output join
+``γ_SUM(mul)(P ⋈ Vcache)`` — is recognised as one unit at its output
+GroupAgg and runs on one hand-written kernel: ``kernels.paged_attention``
+for a decode step (one query row per sequence, masked by that sequence's
+position; single or batched) and ``kernels.flash_attention`` for a prefill
+(T query rows, causal from offset 0).  Any other mask form (the suffix
+prefill's runtime offset) takes the generic operators.
 
 Index tensors are ``int64`` throughout.  Where the JAX reference clamps an
 out-of-bounds gather index or drops an out-of-bounds scatter, this executor
@@ -29,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import operator
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -39,9 +50,9 @@ from repro_torch.core import relational as ra
 from repro_torch.core.relational import (
     BinOp, Call, Col, Collect, Const, Expr, Filter, GroupAgg, Join, Key,
     KeyParam, Param, Project, RelNode, RelSchema, Scan, Unnest, SCALAR,
-    is_vec, resolve,
+    is_vec, resolve, vec_width,
 )
-from repro_torch.kernels import chunked_matmul
+from repro_torch.kernels import chunked_matmul, flash_attention, paged_attention
 
 @dataclasses.dataclass
 class DenseTable:
@@ -447,11 +458,16 @@ def _is_gemm_site(node: GroupAgg, join: Join, left: DenseTable,
             == left.key_names[:-1] + right.key_names[:-1])
 
 
+def _unit_inner(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its inner stride is 1 (as the kernels need), else a
+    contiguous copy."""
+    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
+
+
 def _rows(t: torch.Tensor, m: int, k: int) -> torch.Tensor:
     """``t`` as an ``[m, k]`` matrix with unit inner stride (a view where
     the layout allows one)."""
-    t = t.reshape(m, k)
-    return t if t.stride(-1) == 1 or k == 1 else t.contiguous()
+    return _unit_inner(t.reshape(m, k))
 
 
 def _try_fused_join_agg(node: GroupAgg, env, memo, scalars=None):
@@ -560,6 +576,246 @@ def _try_fused_join_agg(node: GroupAgg, env, memo, scalars=None):
 
 
 # ---------------------------------------------------------------------------
+# Fused attention subplan → paged_attention (decode) / flash_attention
+# (prefill)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _AttentionSite:
+    """The static facts of one matched attention subplan."""
+
+    kind: str                 # "batched" | "decode" | "prefill"
+    q: RelNode                # query table (t | seq, h, c)
+    k: Scan                   # K cache ((seq,) tp, hk, c)
+    v: Scan                   # V cache, same keys
+    q_col: str
+    k_col: str
+    v_col: str
+    out_col: str
+    head_dim: int
+    offset: Optional[str]     # decode: Param name; batched: KeyParam name
+
+
+# id(node) → (weak reference to the node, its site or None).  Plans are
+# static per pipeline, so each attention-output node is matched once; the
+# weak reference's callback drops the entry when the plan is freed.
+_ATTENTION_SITES: Dict[int, tuple] = {}
+_PAGE_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _single_vec_col(scan: Scan) -> Optional[str]:
+    cols = scan.table_schema.cols
+    return cols[0][0] if len(cols) == 1 and is_vec(cols[0][1]) else None
+
+
+def _other(expr: Expr, op_or_fn: str, known: str) -> Optional[str]:
+    """For ``a <op> b`` (or ``fn(a, b)``) over two columns, one of them
+    ``known``: the other column's name."""
+    if isinstance(expr, BinOp) and expr.op == op_or_fn:
+        args = (expr.lhs, expr.rhs)
+    elif isinstance(expr, Call) and expr.fn == op_or_fn and len(expr.args) == 2:
+        args = expr.args
+    else:
+        return None
+    if not all(isinstance(a, Col) for a in args):
+        return None
+    names = [a.name for a in args]
+    if names.count(known) != 1:
+        return None
+    return names[1 - names.index(known)]
+
+
+def _match_attention(node: GroupAgg) -> Optional[_AttentionSite]:
+    """Recognise the attention output ``γ_{t,h,c} SUM(p·v)(P ⋈ Vcache)``
+    whose P is the subplan ``map_attn_scores``/``map_causal_mask``/
+    ``map_softmax`` emit (``core/opmap.py``) over caches in the unplanned
+    key order ``(seq,) tp, hk, c``, with scale 1/√head_dim and no chunk
+    padding.  Returns None for anything else."""
+    if len(node.aggs) != 1 or len(node.group_keys) != 3 \
+            or not isinstance(node.input, Join) \
+            or not isinstance(node.input.right, Scan):
+        return None
+    out_col, fn, pv_expr = node.aggs[0]
+    t, h, c = node.group_keys
+    pv, v_scan = node.input, node.input.right
+    v_col = _single_vec_col(v_scan)
+    if fn != "SUM" or (h, c) != ("h", "c") or v_col is None:
+        return None
+    p_col = _other(pv_expr, "*", v_col)
+    p_node = pv.left
+    if p_col is None or not isinstance(p_node, Project) \
+            or p_node.keys is not None or len(p_node.exprs) != 1:
+        return None
+    # π p = ex / z over (E ⋈ Z)
+    name, _, e = p_node.exprs[0]
+    j2 = p_node.input
+    if name != p_col or not isinstance(e, BinOp) or e.op != "/" \
+            or not isinstance(j2, Join):
+        return None
+    identity = [(t, Key(t)), ("h", Key("h"))]
+    e_node, z_node = j2.left, j2.right
+    if j2.on != identity or not isinstance(e_node, Project) \
+            or e_node.keys is not None or len(e_node.exprs) != 1 \
+            or not isinstance(z_node, GroupAgg) or z_node.input is not e_node:
+        return None
+    ex_col, _, ex_expr = e_node.exprs[0]
+    if e != BinOp("/", Col(ex_col), Col(z_node.aggs[0][0])) \
+            or z_node.group_keys != [t, "h"] \
+            or z_node.aggs != [(z_node.aggs[0][0], "SUM", Col(ex_col))]:
+        return None
+    # π ex = exp(s - m) over (F ⋈ M)
+    j1 = e_node.input
+    if not isinstance(j1, Join) or j1.on != identity \
+            or not isinstance(j1.left, Filter) \
+            or not isinstance(j1.right, GroupAgg):
+        return None
+    f_node, m_node = j1.left, j1.right
+    if m_node.input is not f_node or m_node.group_keys != [t, "h"] \
+            or len(m_node.aggs) != 1 or m_node.aggs[0][1] != "MAX":
+        return None
+    s_node = f_node.input
+    if not isinstance(s_node, GroupAgg) or len(s_node.aggs) != 1:
+        return None
+    s_col = s_node.aggs[0][0]
+    if m_node.aggs[0][2] != Col(s_col) or ex_expr != Call(
+            "exp", (BinOp("-", Col(s_col), Col(m_node.aggs[0][0])),)):
+        return None
+    # σ tp <= bound, masked with the softmax's -inf stand-in
+    op, lhs, rhs = f_node.predicate
+    if op != "<=" or lhs != Key("tp") or f_node.masked_value > -1e30:
+        return None
+    # γ_{t,h,tp} SUM(scale(dot(q, k), 1/√d)) (Q ⋈ Kcache)
+    s_expr, j0 = s_node.aggs[0][2], s_node.input
+    if s_node.aggs[0][1] != "SUM" or s_node.group_keys != [t, "h", "tp"] \
+            or not isinstance(j0, Join) or not isinstance(j0.right, Scan) \
+            or not isinstance(s_expr, Call) or s_expr.fn != "scale" \
+            or not isinstance(s_expr.args[1], Const):
+        return None
+    k_scan = j0.right
+    k_col = _single_vec_col(k_scan)
+    q_col = None if k_col is None else _other(s_expr.args[0], "dot", k_col)
+    if q_col is None:
+        return None
+    batched = t == "seq"
+    cache_keys = (("seq",) if batched else ()) + ("tp", "hk", "c")
+    if k_scan.table_schema.key_names != cache_keys \
+            or v_scan.table_schema.keys != k_scan.table_schema.keys \
+            or v_scan.table_schema.cols[0][1] != k_scan.table_schema.cols[0][1]:
+        return None
+    sizes = dict(k_scan.table_schema.keys)
+    n_c = sizes["c"]
+    cs = vec_width(k_scan.table_schema.cols[0][1])
+    head_dim = n_c * cs
+    out = resolve(node)
+    n_heads = out.key_size("h")
+    if n_heads % sizes["hk"] or not math.isclose(
+            s_expr.args[1].value, 1.0 / math.sqrt(head_dim), rel_tol=1e-6):
+        return None
+    group = BinOp("//", Key("h"), Const(float(n_heads // sizes["hk"])))
+    seq_on = [("seq", Key("seq"))] if batched else []
+    if j0.on != seq_on + [("hk", group), ("c", Key("c"))] \
+            or pv.on != seq_on + [("tp", Key("tp")), ("hk", group)] \
+            or out.key_size("c") != n_c:
+        return None
+    # the mask decides the kernel
+    if batched and isinstance(rhs, KeyParam) and rhs.key == "seq":
+        kind, offset = "batched", rhs.name
+    elif not batched and isinstance(rhs, BinOp) and rhs.op == "+" \
+            and rhs.lhs == Key(t) and rhs.rhs == Const(0.0):
+        kind, offset = "prefill", None
+    elif not batched and isinstance(rhs, BinOp) and rhs.op == "+" \
+            and rhs.lhs == Key(t) and isinstance(rhs.rhs, Param) \
+            and out.key_size(t) == 1:
+        kind, offset = "decode", rhs.rhs.name
+    else:
+        return None
+    return _AttentionSite(kind=kind, q=j0.left, k=k_scan, v=v_scan,
+                          q_col=q_col, k_col=k_col, v_col=v_col,
+                          out_col=out_col, head_dim=head_dim, offset=offset)
+
+
+def _attention_site(node: GroupAgg) -> Optional[_AttentionSite]:
+    """``_match_attention``, once per plan node."""
+    entry = _ATTENTION_SITES.get(id(node))
+    if entry is not None and entry[0]() is node:
+        return entry[1]
+    key = id(node)
+    site = _match_attention(node)
+    _ATTENTION_SITES[key] = (
+        weakref.ref(node, lambda _: _ATTENTION_SITES.pop(key, None)), site)
+    return site
+
+
+def _identity_page_table(n_seq: int, n_pages: int, device) -> torch.Tensor:
+    """Page table [n_seq, n_pages] mapping sequence b's page p to pool page
+    ``b·n_pages + p``: a contiguous cache viewed as a pool.  Made once per
+    shape and device."""
+    k = (n_seq, n_pages, str(device))
+    if k not in _PAGE_TABLES:
+        _PAGE_TABLES[k] = torch.arange(
+            n_seq * n_pages, dtype=torch.int32, device=device).reshape(
+                n_seq, n_pages)
+    return _PAGE_TABLES[k]
+
+
+def _try_fused_attention(node: GroupAgg, env, memo, scalars=None):
+    """Run a matched attention subplan on one kernel; None if ``node`` is
+    not one.
+
+    Decode (single or batched) goes to ``paged_attention``: each cache
+    ``[(B,) S, Hkv, d]`` is viewed as a pool of ``page = gcd(S, 64)``-row
+    pages with an identity page table, and the lengths are the positions
+    + 1 (the batched ones stay on the device: no host sync).  Prefill goes
+    to ``flash_attention`` with q ``[1, H, T, d]`` and k/v ``[1, Hkv, S, d]``
+    as strided views of the tables.  Both kernels read only the live rows.
+    """
+    site = _attention_site(node)
+    if site is None:
+        return None
+    qt = execute(site.q, env, memo, scalars)
+    kt = execute(site.k, env, memo, scalars)
+    vt = execute(site.v, env, memo, scalars)
+    d = site.head_dim
+    nq, n_heads = qt.key_sizes[0], qt.key_sizes[1]
+    q = _unit_inner(qt.cols[site.q_col].reshape(nq, n_heads, d))
+    if site.kind == "prefill":
+        S, n_kv = kt.key_sizes[:2]
+
+        def heads_first(t):  # [S, Hkv, nc, cs] → [1, Hkv, S, d]
+            return _unit_inner(t.reshape(S, n_kv, d)).permute(1, 0, 2)[None]
+
+        res = flash_attention(q.permute(1, 0, 2)[None],
+                              heads_first(kt.cols[site.k_col]),
+                              heads_first(vt.cols[site.v_col]),
+                              causal=True)[0].permute(1, 0, 2)
+    else:
+        n_seq = nq if site.kind == "batched" else 1
+        S, n_kv = kt.key_sizes[-3], kt.key_sizes[-2]
+        page = math.gcd(S, 64)
+
+        def pool(t):  # [(B,) S, Hkv, nc, cs] → [B·S/page, page, Hkv, d]
+            return _unit_inner(t.reshape(n_seq * S // page, page, n_kv, d))
+
+        if site.kind == "batched":
+            lengths = scalars[site.offset] + 1
+        else:
+            pos = int(scalars[site.offset])
+            if not 0 <= pos < S:
+                raise IndexError(f"decode position {pos} outside the "
+                                 f"{S}-row cache")
+            lengths = _arange(S + 1, q.device)[pos + 1:pos + 2]
+        res = paged_attention(q, pool(kt.cols[site.k_col]),
+                              pool(vt.cols[site.v_col]),
+                              _identity_page_table(n_seq, S // page, q.device),
+                              lengths)
+    out = resolve(node)
+    col = res.reshape(tuple(s for _, s in out.keys) + (-1,))
+    return DenseTable(keys=out.keys, cols={site.out_col: col},
+                      col_types={site.out_col: out.col_type(site.out_col)})
+
+
+# ---------------------------------------------------------------------------
 # Main interpreter
 # ---------------------------------------------------------------------------
 
@@ -646,7 +902,9 @@ def _execute(node: RelNode, env, memo, scalars=None) -> DenseTable:
         return DenseTable(keys=schema.keys, cols=out_cols, col_types=out_types)
 
     if isinstance(node, GroupAgg):
-        fused = _try_fused_join_agg(node, env, memo, scalars)
+        fused = _try_fused_attention(node, env, memo, scalars)
+        if fused is None:
+            fused = _try_fused_join_agg(node, env, memo, scalars)
         if fused is not None:
             return fused
         t = execute(node.input, env, memo, scalars)

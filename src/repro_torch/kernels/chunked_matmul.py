@@ -6,7 +6,7 @@ padding wrapper): the chunk-key equi-join of ``R_X(i, c, x_chunk)`` and
 ``R_W(j, c, w_chunk)`` plus ``γ_{(i,j)} SUM(dot)``.  The kernel is
 ``csrc/chunked_matmul.cu``, CUDA C++ for ``sm_90a`` with a plain C
 interface, built with ``nvcc`` at first use into the ``build/`` directory of
-the checkout and loaded with ``ctypes``.
+the checkout and loaded with ``ctypes`` (``_build.py``).
 
 At decode shapes (M = 1..4 rows) the product is bound by the bytes of W:
 each W element is read once for about two flops.  The kernel's small-M
@@ -23,69 +23,28 @@ counts every call and ``chunked_matmul.launches`` every kernel launch.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
-from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "chunked_matmul.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: "chunked_matmul_f32",
            torch.bfloat16: "chunked_matmul_bf16"}
-
-# built libraries go to build/kernels/ at the root of the checkout
-# (listed in .gitignore)
-BUILD_DIR = SOURCE.parents[4] / "build" / "kernels"
-
-_lib: Optional[ctypes.CDLL] = None
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_void_p]
 
 
-def build() -> Path:
-    """Compile ``csrc/chunked_matmul.cu`` with ``nvcc`` for ``sm_90a`` unless
-    a library built from this exact source is already there; returns the
-    shared library's path.  ``nvcc``'s ``-Xptxas -v`` report (registers,
-    shared memory, spills) is kept beside it as ``.log``."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libchunked_matmul-{tag}.so"
-    if out.exists():
-        return out
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-         "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+def build():
+    """Compile ``csrc/chunked_matmul.cu`` (see ``_build.build``); returns
+    the shared library's path."""
+    return _build.build("chunked_matmul")
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn in _DTYPES.values():
-            f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_longlong, ctypes.c_longlong,
-                          ctypes.c_longlong, ctypes.c_void_p]
-            f.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _build.library("chunked_matmul",
+                          {fn: _ARGTYPES for fn in _DTYPES.values()})
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:

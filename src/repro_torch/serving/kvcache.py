@@ -9,9 +9,13 @@ the paper's chunk-index projection.
 
 Pages are pooled across sequences (no per-sequence max-length allocation).
 The page table and lengths live on the host (the scheduler's view); the
-pools are tensors on an explicit device.  The pool accessors
-(``append``/``gather``/``kernel_views``) come with the paged-attention
-kernel: ROADMAP.md next slice N1.
+pools are tensors on an explicit device.  ``kernels.paged_attention``
+consumes the slot-major pool order through :meth:`PagedKVCache.kernel_views`
+(which transposes when the pool is stored ``head_major``) and the page
+table and lengths through :meth:`PagedKVCache.batch_views`.  The
+relational engine's decode reads its own cache tables
+(:class:`BatchedCacheTables` slots): the executor hands each to the same
+kernel as a pool of contiguous pages with an identity page table.
 
 The prefix cache (``CacheSegment``/``PrefixCache`` and the segment
 bindings of ``BatchedCacheTables``) is not ported yet: ROADMAP.md next
@@ -21,7 +25,7 @@ slice N2.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +110,66 @@ class PagedKVCache:
 
     def free_page_count(self) -> int:
         return len(self._free)
+
+    # -- device-side append / gather -------------------------------------------
+
+    def append(self, seq_id: int, layer_k: torch.Tensor,
+               layer_v: torch.Tensor, pos: int) -> None:
+        """Write one token's K/V (all layers) at absolute position ``pos``.
+
+        layer_k/v: [n_layers, n_kv, head_dim].  The (page, slot) address is
+        the chunk-key projection of ``pos``.  The pools are written in place
+        (the reference rebinds them to functionally updated arrays)."""
+        self.ensure_capacity(seq_id, pos + 1)
+        page = int(self.page_table[seq_id, pos // self.cfg.page_size])
+        slot = pos % self.cfg.page_size
+        for pool, new in ((self.k_pool, layer_k), (self.v_pool, layer_v)):
+            new = torch.as_tensor(new).to(device=self.device,
+                                          dtype=pool.dtype)
+            if self.cfg.layout == "head_major":
+                pool[:, page, :, slot] = new
+            else:
+                pool[:, page, slot] = new
+        self.seq_lens[seq_id] = max(int(self.seq_lens[seq_id]), pos + 1)
+
+    def gather(self, seq_id: int, layer: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Materialise a sequence's K/V [T, n_kv, dh] (reference path)."""
+        T = int(self.seq_lens[seq_id])
+        pages = torch.from_numpy(np.asarray(
+            self.page_table[seq_id][: -(-T // self.cfg.page_size)],
+            np.int64)).to(self.device)
+        k, v = self.k_pool[layer, pages], self.v_pool[layer, pages]
+        if self.cfg.layout == "head_major":  # [P, hk, slot, dh] -> slot-major
+            k = k.transpose(1, 2)
+            v = v.transpose(1, 2)
+        k = k.reshape(-1, self.cfg.n_kv, self.cfg.head_dim)[:T]
+        v = v.reshape(-1, self.cfg.n_kv, self.cfg.head_dim)[:T]
+        return k, v, T
+
+    def batch_views(self, seq_ids: List[int]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Page tables [B, max_pages] and lengths [B] of a decode batch on
+        the pools' device (the kernel's inputs; int64, the port's index
+        type — the kernel wrapper narrows them to int32)."""
+        ids = np.asarray(seq_ids, np.int64)
+        pt = torch.from_numpy(self.page_table[ids].astype(np.int64))
+        lens = torch.from_numpy(self.seq_lens[ids].astype(np.int64))
+        return pt.to(self.device), lens.to(self.device)
+
+    def kernel_views(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This layer's K/V pools in the slot-major order
+        ``[n_pages, page_size, n_kv, head_dim]`` that
+        ``kernels.paged_attention`` unpacks positionally.  When the pool is
+        stored ``head_major`` this is a transposed view (the kernel takes
+        the pool's strides, so nothing is copied).  Kernel consumers go
+        through this accessor rather than indexing ``k_pool`` directly,
+        since the pool's physical layout is config-chosen."""
+        k, v = self.k_pool[layer], self.v_pool[layer]
+        if self.cfg.layout == "head_major":  # [P, hk, slot, d] -> slot-major
+            k = k.transpose(1, 2)
+            v = v.transpose(1, 2)
+        return k, v
 
 
 class BatchedCacheTables:

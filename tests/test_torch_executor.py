@@ -5,7 +5,9 @@ through ``repro.core.executor`` and ``repro_torch.core.executor`` (each
 package compiles with its own IR), and compares within rtol = atol = 1e-5
 in float32.  The pipelines are the Llama prefill, decode and batched
 decode plans of ``tests/test_llama_relational.py``'s spec at chunk sizes
-4, 8 and 16.
+4, 8 and 16.  The port runs each layer's attention subplan on one kernel
+(``paged_attention`` for decode, ``flash_attention`` for prefill), here
+through the kernels' plain versions; the JAX executor runs it relationally.
 """
 
 import numpy as np
@@ -30,7 +32,8 @@ from repro_torch.core.opmap import op_map as t_op_map  # noqa: E402
 from repro_torch.core.passes import (postoptimize as t_post,  # noqa: E402
                                      preoptimize as t_pre)
 from repro_torch.core.pipeline import run_pipeline as t_run  # noqa: E402
-from repro_torch.kernels import chunked_matmul  # noqa: E402
+from repro_torch.kernels import (chunked_matmul,  # noqa: E402
+                                 flash_attention, paged_attention)
 
 SPEC_ARGS = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv=2,
                  d_ff=64, rope_theta=10000.0)
@@ -235,12 +238,18 @@ def test_single_plan_matches_jax(case):
                                    err_msg=c, **TOL)
 
 
+def _calls():
+    return (chunked_matmul.calls, paged_attention.calls, flash_attention.calls)
+
+
 def test_gemm_site_goes_to_the_kernel_and_attention_does_not():
-    calls = chunked_matmul.calls
+    """A GEMM site runs K1; an isolated score join (no softmax or output
+    join around it) is no attention subplan and calls neither K2 nor K3."""
+    k1, k2, k3 = _calls()
     _run_case(case_gemm)
-    assert chunked_matmul.calls == calls + 1
+    assert _calls() == (k1 + 1, k2, k3)
     _run_case(case_gqa_join)
-    assert chunked_matmul.calls == calls + 1
+    assert _calls() == (k1 + 1, k2, k3)
 
 
 def test_value_join_out_of_range_raises():
@@ -260,17 +269,17 @@ def test_value_join_out_of_range_raises():
 _PIPES = {}
 
 
-def _pipes(kind, cs, T=0, batch=0):
+def _pipes(kind, cs, T=0, batch=0, max_len=MAX_LEN):
     """(jax pipeline, torch pipeline) for one graph, compiled once."""
-    key = (kind, cs, T, batch)
+    key = (kind, cs, T, batch, max_len)
     if key not in _PIPES:
         out = []
         for lg, spec, infer, pre, opm, post in (
                 (jlg, J_SPEC, j_infer, j_pre, j_op_map, j_post),
                 (tlg, T_SPEC, t_infer, t_pre, t_op_map, t_post)):
-            g = (lg.build_prefill_graph(spec, T, cache_len=MAX_LEN)
+            g = (lg.build_prefill_graph(spec, T, cache_len=max_len)
                  if kind == "prefill" else
-                 lg.build_decode_graph(spec, cache_len=MAX_LEN, batch=batch))
+                 lg.build_decode_graph(spec, cache_len=max_len, batch=batch))
             infer(g)
             pre(g)
             pipe = opm(g, chunk_size=cs)
@@ -280,17 +289,17 @@ def _pipes(kind, cs, T=0, batch=0):
     return _PIPES[key]
 
 
-def _prefill_envs(cs, prompt):
+def _prefill_envs(cs, prompt, max_len=MAX_LEN):
     """Post-prefill environments of both packages (and the prefill logits)."""
-    jp, tp = _pipes("prefill", cs, T=len(prompt))
+    jp, tp = _pipes("prefill", cs, T=len(prompt), max_len=max_len)
     T = len(prompt)
     jenv = jlg.convert_weights(PARAMS, chunk_size=cs)
-    jenv.update(jlg.empty_cache_tables(J_SPEC, MAX_LEN, chunk_size=cs))
+    jenv.update(jlg.empty_cache_tables(J_SPEC, max_len, chunk_size=cs))
     jenv["token_ids"] = jlg.token_table(np.asarray(prompt, np.int32))
     jenv["freq_each_token"] = jlg.rope_freq_table(
         np.arange(T), J_SPEC.head_dim, J_SPEC.rope_theta)
     tenv = tlg.convert_weights(PARAMS, chunk_size=cs, device="cpu")
-    tenv.update(tlg.empty_cache_tables(T_SPEC, MAX_LEN, chunk_size=cs,
+    tenv.update(tlg.empty_cache_tables(T_SPEC, max_len, chunk_size=cs,
                                        device=CPU))
     tenv["token_ids"] = tlg.token_table(np.asarray(prompt), device=CPU)
     tenv["freq_each_token"] = tlg.rope_freq_table(
@@ -325,14 +334,15 @@ def _unchanged(env, snap):
                for n, cols in snap.items() for c, v in cols.items())
 
 
-PER_CALL = 7 * SPEC_ARGS["n_layers"] + 1
+N_LAYERS = SPEC_ARGS["n_layers"]
+PER_CALL = 7 * N_LAYERS + 1
 
 
 @pytest.mark.parametrize("cs", [4, 8, 16])
 def test_prefill_pipeline_matches_jax(cs):
-    calls = chunked_matmul.calls
+    k1, k2, k3 = _calls()
     jo, jenv, to, tenv = _prefill_envs(cs, [3, 17, 42, 5, 9])
-    assert chunked_matmul.calls == calls + PER_CALL
+    assert _calls() == (k1 + PER_CALL, k2, k3 + N_LAYERS)
     _close(jo["logits"], to["logits"])
     for name in ("k_cache_L0", "v_cache_L1"):
         _close(jenv[name], tenv[name])
@@ -347,27 +357,27 @@ def test_decode_pipeline_matches_jax(cs):
             -1, J_SPEC.vocab)[-1]))
         _decode_inputs(jenv, tenv, tok, pos)
         snap = _snapshot(tenv)
-        calls = chunked_matmul.calls
+        k1, k2, k3 = _calls()
         jo, jenv = j_run(jd, jenv, scalars={"cache_position": pos})
         to, tenv_new = t_run(td, tenv, scalars={"cache_position": pos})
-        assert chunked_matmul.calls == calls + PER_CALL
+        assert _calls() == (k1 + PER_CALL, k2 + N_LAYERS, k3)
         assert _unchanged(tenv, snap), "run_pipeline wrote the caller's env"
         tenv = tenv_new
         _close(jo["logits"], to["logits"])
         _close(jenv["k_cache_L1"], tenv["k_cache_L1"])
 
 
-def _batched_envs(cs, prompts, bucket):
+def _batched_envs(cs, prompts, bucket, max_len=MAX_LEN):
     """Seq-keyed batched envs with each prompt's prefill in its slot."""
     jenv = jlg.convert_weights(PARAMS, chunk_size=cs)
     tenv = tlg.convert_weights(PARAMS, chunk_size=cs, device="cpu")
-    jenv.update(jlg.empty_cache_tables(J_SPEC, MAX_LEN, chunk_size=cs,
+    jenv.update(jlg.empty_cache_tables(J_SPEC, max_len, chunk_size=cs,
                                        batch=bucket))
-    tenv.update(tlg.empty_cache_tables(T_SPEC, MAX_LEN, chunk_size=cs,
+    tenv.update(tlg.empty_cache_tables(T_SPEC, max_len, chunk_size=cs,
                                        batch=bucket, device=CPU))
     toks = []
     for s, prompt in enumerate(prompts):
-        jo, je, _, te = _prefill_envs(cs, prompt)
+        jo, je, _, te = _prefill_envs(cs, prompt, max_len)
         jlg.copy_cache_slot(jenv, s, je)
         tlg.copy_cache_slot(tenv, s, te)
         toks.append(int(np.argmax(np.asarray(jo["logits"].cols["v"]).reshape(
@@ -390,14 +400,42 @@ def test_batched_decode_pipeline_matches_jax(cs):
         cs, [[3, 17, 42], [5, 9], [1, 2, 3, 4, 5], [1, 2, 3, 4, 5]], bucket=4)
     jb, tb = _pipes("batched", cs, batch=4)
     snap = _snapshot(tenv)
-    calls = chunked_matmul.calls
+    k1, k2, k3 = _calls()
     jo, jenv2 = j_run(jb, jenv, scalars={
         "seq_positions": jnp.asarray(positions, jnp.int32)})
     to, tenv2 = t_run(tb, tenv, scalars={"seq_positions": positions})
-    assert chunked_matmul.calls == calls + PER_CALL
+    assert _calls() == (k1 + PER_CALL, k2 + N_LAYERS, k3)
     assert _unchanged(tenv, snap), "run_pipeline wrote the caller's env"
     _close(jo["logits"], to["logits"])
     _close(jenv2["v_cache_L0"], tenv2["v_cache_L0"])
+
+
+@pytest.mark.parametrize("T,max_len", [(5, 40), (17, 40), (5, 100),
+                                       (17, 100)])
+def test_ragged_prompts_and_cache_lengths_match_jax(T, max_len):
+    """Prompt lengths that fill no kernel tile and caches that are not a
+    multiple of 64 rows (the executor's page is gcd(max_len, 64): 8 and 4
+    rows): prefill, two decode steps and one batched tick."""
+    prompt = [int(t) for t in np.random.default_rng(T).integers(0, 64, T)]
+    jo, jenv, to, tenv = _prefill_envs(8, prompt, max_len)
+    _close(jo["logits"], to["logits"])
+    jd, td = _pipes("decode", 8, max_len=max_len)
+    for pos in (T, T + 1):
+        tok = int(np.argmax(np.asarray(jo["logits"].cols["v"]).reshape(
+            -1, J_SPEC.vocab)[-1]))
+        _decode_inputs(jenv, tenv, tok, pos)
+        k2 = paged_attention.calls
+        jo, jenv = j_run(jd, jenv, scalars={"cache_position": pos})
+        to, tenv = t_run(td, tenv, scalars={"cache_position": pos})
+        assert paged_attention.calls == k2 + N_LAYERS
+        _close(jo["logits"], to["logits"])
+    jenv, tenv, positions = _batched_envs(8, [prompt, [5, 9]], bucket=2,
+                                          max_len=max_len)
+    jb, tb = _pipes("batched", 8, batch=2, max_len=max_len)
+    jo, _ = j_run(jb, jenv, scalars={
+        "seq_positions": jnp.asarray(positions, jnp.int32)})
+    to, _ = t_run(tb, tenv, scalars={"seq_positions": positions})
+    _close(jo["logits"], to["logits"])
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode", "batched"])

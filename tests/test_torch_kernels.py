@@ -93,3 +93,151 @@ def test_wrapper_rejects(case):
     }[case]
     with pytest.raises((ValueError, TypeError)):
         chunked_matmul(*args)
+
+
+# ---------------------------------------------------------------------------
+# paged_attention (K2) and flash_attention (K3)
+# ---------------------------------------------------------------------------
+#
+# The port's plain versions against the Pallas kernels in interpret mode and
+# the JAX oracles, at the sweeps of tests/test_kernels.py (same tolerances).
+# The kernels' own skip semantics (unmapped pages, length 0) differ from the
+# oracles' and are held on the card in tests/test_torch_gpu.py.
+
+from repro_torch.kernels import flash_attention, paged_attention  # noqa: E402
+
+
+def _paged_inputs(lens, seed):
+    """The sweep of tests/test_kernels.py: B=3, H=8, Hkv=2, d=32, pages of 8
+    in a pool of 16, 4 pages per sequence, every page below a length
+    mapped (in shuffled pool order) and the rest -1."""
+    B, H, Hkv, d, page, P, MP = 3, 8, 2, 32, 8, 16, 4
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    kp = rng.standard_normal((P, page, Hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((P, page, Hkv, d)).astype(np.float32)
+    pt = np.full((B, MP), -1, np.int32)
+    used = iter(rng.permutation(P))
+    for b in range(B):
+        for i in range(-(-lens[b] // page)):
+            pt[b, i] = next(used)
+    return q, kp, vp, pt, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("lens", [[5, 17, 32], [1, 1, 1], [32, 8, 24]])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_paged_attention_matches_pallas_kernel(lens, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    q, kp, vp, pt, ln = _paged_inputs(lens, seed=sum(lens))
+    j = [jnp.asarray(a, jdt) for a in (q, kp, vp)]
+    want_kernel = jops.paged_attention(*j, jnp.asarray(pt), jnp.asarray(ln),
+                                       interpret=True)
+    want_ref = jref.paged_attention(*j, jnp.asarray(pt), jnp.asarray(ln))
+    got = paged_attention(*(torch.from_numpy(a).to(tdt) for a in (q, kp, vp)),
+                          torch.from_numpy(pt), torch.from_numpy(ln))
+    assert got.dtype == tdt and got.shape == q.shape
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def _flash_inputs(shape_q, shape_kv, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape_q).astype(np.float32),
+            rng.standard_normal(shape_kv).astype(np.float32),
+            rng.standard_normal(shape_kv).astype(np.float32))
+
+
+@pytest.mark.parametrize("T,S,d,causal", [
+    (32, 32, 16, True), (64, 64, 32, True), (32, 64, 16, False),
+    (128, 128, 64, True)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_flash_attention_matches_pallas_kernel(T, S, d, causal, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _flash_inputs((2, 2, T, d), (2, 2, S, d), seed=T + S + d)
+    j = [jnp.asarray(a, jdt) for a in (q, k, v)]
+    want_kernel = jops.flash_attention(*j, causal=causal, bq=16, bk=16,
+                                       interpret=True)
+    want_ref = jref.flash_attention(*j, causal=causal)
+    got = flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                          causal=causal)
+    assert got.dtype == tdt and got.shape == q.shape
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("T,S", [(17, 17), (5, 40)])
+def test_plain_flash_attention_groups_kv_heads(T, S):
+    """Hkv < H: query head h reads KV head h // (H/Hkv), as the oracle over
+    ``jnp.repeat``-ed k/v; ragged T < S with the top-left causal mask."""
+    H, Hkv, d = 8, 2, 16
+    q, k, v = _flash_inputs((1, H, T, d), (1, Hkv, S, d), seed=T * S)
+    want = jref.flash_attention(jnp.asarray(q),
+                                jnp.repeat(jnp.asarray(k), H // Hkv, axis=1),
+                                jnp.repeat(jnp.asarray(v), H // Hkv, axis=1),
+                                causal=True)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", ["paged", "flash"])
+def test_attention_cpu_tensors_take_the_plain_version(kernel):
+    if kernel == "paged":
+        fn, plain = paged_attention, ref.paged_attention
+        args = [torch.from_numpy(a) for a in _paged_inputs([5, 9, 1], 0)]
+    else:
+        fn, plain = flash_attention, ref.flash_attention
+        args = [torch.from_numpy(a) for a in
+                _flash_inputs((1, 4, 6, 8), (1, 2, 9, 8), 0)]
+    calls, launches = fn.calls, fn.launches
+    got = fn(*args)
+    assert fn.calls == calls + 1 and fn.launches == launches
+    assert torch.equal(got, plain(*args))
+
+
+def _bad_attention_args(kernel, case):
+    """Arguments with one defect each (the rest well formed)."""
+    if kernel == "paged":
+        q, kp, vp = torch.ones(2, 4, 8), torch.ones(3, 4, 2, 8), \
+            torch.ones(3, 4, 2, 8)
+        pt, ln = torch.zeros(2, 2, dtype=torch.int32), torch.ones(2).long()
+        args = [q, kp, vp, pt, ln]
+        bad = {"rank": (0, torch.ones(2, 4, 8, 1)),
+               "dtype": (0, q.double()),
+               "mixed_dtype": (1, kp.bfloat16()),
+               "mixed_device": (1, torch.ones(3, 4, 2, 8, device="meta")),
+               "inner_stride": (0, torch.ones(2, 8, 4).transpose(1, 2)),
+               "heads": (0, torch.ones(2, 3, 8)),
+               "index_dtype": (4, ln.float())}
+    else:
+        q, k = torch.ones(1, 4, 6, 8), torch.ones(1, 2, 9, 8)
+        args = [q, k, k.clone()]
+        bad = {"rank": (0, torch.ones(4, 6, 8)),
+               "dtype": (0, q.double()),
+               "mixed_dtype": (2, k.bfloat16()),
+               "mixed_device": (1, torch.ones(1, 2, 9, 8, device="meta")),
+               "inner_stride": (0, torch.ones(1, 4, 8, 6).transpose(2, 3)),
+               "heads": (0, torch.ones(1, 3, 6, 8))}
+    i, t = bad[case]
+    args[i] = t
+    return args
+
+
+_DEFECTS = ("rank", "dtype", "mixed_dtype", "mixed_device", "inner_stride",
+            "heads")
+
+
+@pytest.mark.parametrize("kernel,case", [
+    (k, c) for k in ("paged", "flash") for c in _DEFECTS]
+    + [("paged", "index_dtype")])
+def test_attention_wrappers_reject(kernel, case):
+    args = _bad_attention_args(kernel, case)
+    fn = paged_attention if kernel == "paged" else flash_attention
+    calls = fn.calls
+    with pytest.raises((ValueError, TypeError)):
+        fn(*args)
+    assert fn.calls == calls
