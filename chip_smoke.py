@@ -44,12 +44,18 @@ N_LAYERS = 32
 # of bytes / memory rate and flops / f32 rate.
 PEAKS = (3.35e12, 67e12)
 
+# K1: the sweep of tests/test_kernels.py, then ragged N, a K that is no
+# multiple of the 16-byte vector (the scalar path) and split-K shapes
 SWEEP = [(32, 32, 32), (96, 64, 160), (17, 23, 40), (128, 128, 256),
-         (1, 64, 160), (4, 23, 40), (16, 33, 300)]
-MAIN_M = (1, 4, 64)
+         (1, 64, 160), (4, 23, 40), (16, 33, 300), (1, 1023, 301),
+         (2, 100, 301), (64, 1023, 301), (16, 1024, 4096), (17, 1024, 4096)]
+# decode rows (batch buckets 1, 2, 4) and a 64-token prefill
+MAIN_M = (1, 2, 4, 64)
+PREFILL_M = 64
 MAIN_NK = {"o/Q": (4096, 4096), "K/V": (1024, 4096), "W1/W3": (14336, 4096),
            "W2": (4096, 14336), "lm_head": (128256, 4096)}
-# GEMM launches of one decode step per weight shape (7 per layer + lm_head)
+# GEMM launches of one decode step, or one prefill, per weight shape (7 per
+# layer + lm_head)
 STEP_COUNTS = {"o/Q": 2 * N_LAYERS, "K/V": 2 * N_LAYERS,
                "W1/W3": 2 * N_LAYERS, "W2": N_LAYERS, "lm_head": 1}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -132,6 +138,8 @@ def phase_build():
 
 def phase_kernels():
     from repro_torch.kernels import chunked_matmul, ref
+    from repro_torch.kernels.chunked_matmul import (_aligned, _plan,
+                                                    _sm_count)
     log("== phase 3: K1 chunked_matmul against its plain version")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -146,7 +154,16 @@ def phase_kernels():
                                        rtol=TOL[dtype], atol=TOL[dtype])
             if dtype == torch.float32:
                 max_err = max(max_err, (got - want).abs().max().item())
-    log(f"sweep {SWEEP} in f32 and bf16: ok")
+        # rows that start one element off the 16-byte grid: the scalar path
+        wide = torch.randn(5, 4097, generator=gen, device=dev).to(dtype)
+        w = torch.randn(300, 4096, generator=gen, device=dev).to(dtype)
+        x = wide[:, 1:]
+        assert not _aligned(x, w)
+        got = chunked_matmul(x, w)
+        torch.testing.assert_close(got.float(),
+                                   ref.chunked_matmul(x, w).float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    log(f"sweep {SWEEP} and misaligned rows, f32 and bf16: ok")
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     rows = []
@@ -155,39 +172,53 @@ def phase_kernels():
         for m in MAIN_M:
             x = torch.randn(m, k, generator=gen, device=dev)
             got, want = chunked_matmul(x, w), ref.chunked_matmul(x, w)
+            again = chunked_matmul(x, w)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            assert torch.equal(got, again), f"{label} M={m}: not repeatable"
             err = (got - want).abs().max().item()
             max_err = max(max_err, err)
-            nbytes = 4 * (m * k + n * k + m * n)
-            flops = 2 * m * n * k
-            bound = max(nbytes / PEAKS[0], flops / PEAKS[1]) * 1e3
+            plan = _plan(m, n, k, x.dtype, _aligned(x, w), _sm_count(dev))
+            bound, by = _bound(4 * (m * k + n * k + m * n), 2 * m * n * k)
             row = {
                 "site": label, "M": m, "N": n, "K": k,
                 "kernel_ms": time_ms(lambda: chunked_matmul(x, w), flush),
                 "plain_ms": time_ms(lambda: ref.chunked_matmul(x, w), flush),
                 "library_ms": time_ms(lambda: torch.matmul(x, w.T), flush),
-                "bound_ms": bound,
-                "bound_by": ("bytes" if nbytes / PEAKS[0] >= flops / PEAKS[1]
-                             else "operations"),
-                "max_abs_err": err,
+                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                "plan": f"{plan.regime} tile {plan.tile} splits "
+                        f"{plan.splits} ({plan.blocks} blocks)",
             }
             rows.append(row)
             log(f"  {label:8s} M={m:3d} N={n:6d} K={k:5d}  "
                 f"kernel {row['kernel_ms']:.4f} ms  plain "
                 f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f}"
-                f" ms  bound {bound:.4f} ms ({row['bound_by']})  "
-                f"max|err| {err:.2e}")
+                f" ms  bound {bound:.4f} ms ({by})  max|err| {err:.2e}  "
+                f"{row['plan']}")
         del w
     del flush
-    step = {key: sum(r[key] * STEP_COUNTS[r["site"]] for r in rows
-                     if r["M"] == 1)
-            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"one decode step's {sum(STEP_COUNTS.values())} GEMMs at M=1: "
-        f"kernel {step['kernel_ms']:.3f} ms, plain {step['plain_ms']:.3f} "
-        f"ms, library {step['library_ms']:.3f} ms, bound "
-        f"{step['bound_ms']:.3f} ms")
-    return rows, step, max_err
+    steps = {}
+    for m in MAIN_M:
+        what = "prefill" if m == PREFILL_M else "decode step"
+        step = {key: sum(r[key] * STEP_COUNTS[r["site"]] for r in rows
+                         if r["M"] == m)
+                for key in ("kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms")}
+        step["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                           for r in rows if r["M"] == m)
+                            else "operations")
+        steps[m] = step
+        log(f"one {what}'s {sum(STEP_COUNTS.values())} GEMMs at M={m}: "
+            f"kernel {step['kernel_ms']:.3f} ms, plain "
+            f"{step['plain_ms']:.3f} ms, library {step['library_ms']:.3f} ms,"
+            f" bound {step['bound_ms']:.3f} ms ({step['bound_by']}); kernel "
+            f"/ library {step['kernel_ms'] / step['library_ms']:.3f}, bound "
+            f"/ kernel {step['bound_ms'] / step['kernel_ms']:.3f}")
+    worst = {m: max(r["kernel_ms"] / r["library_ms"] for r in rows
+                    if r["M"] == m) for m in MAIN_M}
+    log(f"worst single shape, kernel / library: "
+        f"{', '.join(f'M={m} {v:.3f}' for m, v in worst.items())}")
+    return steps, max_err
 
 
 def _bound(nbytes: float, flops: float):
@@ -580,7 +611,8 @@ def main() -> int:
 
     card = timed("phase 1", phase_device)
     timed("phase 2", phase_build)
-    rows, step, max_err = timed("phase 3 (K1)", phase_kernels)
+    steps, max_err = timed("phase 3 (K1)", phase_kernels)
+    step, prefill = steps[1], steps[PREFILL_M]
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     _, attn_step, attn_err = timed("phase 3 (K2, K3)",
                                    phase_attention_kernels, flush)
@@ -596,12 +628,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/chunked_matmul.py:42",
         "launches": launches["chunked_matmul"], "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
-        "bound_ms": step["bound_ms"],
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows
-                                    if r["M"] == 1) else "operations"),
+        "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
         "library_ms": step["library_ms"],
+        "prefill_ms": prefill["kernel_ms"],
+        "prefill_library_ms": prefill["library_ms"],
+        "prefill_bound_ms": prefill["bound_ms"],
         "times_are": f"one decode step's {sum(STEP_COUNTS.values())} GEMMs "
-                     f"at M=1, summed from per-shape medians"}]
+                     f"at M=1 (prefill_*: one {PREFILL_M}-token prefill's), "
+                     f"summed from per-shape medians"}]
     for name, tpu_line, what in (
             ("paged_attention", "src/repro/kernels/paged_attention.py:80",
              "one decode tick"),

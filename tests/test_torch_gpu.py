@@ -18,12 +18,19 @@ from repro_torch.core.llama_graph import (LlamaSpec,  # noqa: E402
                                           init_llama_params)
 from repro_torch.kernels import (chunked_matmul,  # noqa: E402
                                  flash_attention, paged_attention, ref)
+from repro_torch.kernels.chunked_matmul import _aligned, _plan  # noqa: E402
 from repro_torch.serving.engine import RelationalEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
-SHAPES = [(32, 32, 32), (96, 64, 160), (17, 23, 40), (128, 128, 256),
-          (1, 64, 160), (4, 23, 40), (16, 33, 300), (64, 1024, 4096)]
+# decode rows (M <= 16 takes the GEMV) and prefill rows (M > 16 the tiled
+# GEMM), each at two main-path N x K pairs (split K in both regimes) and
+# at a ragged N with a K off the 16-byte vector (the scalar path)
+MS = [1, 2, 4, 16, 17, 64]
+SHAPES = ([(32, 32, 32), (96, 64, 160), (17, 23, 40), (128, 128, 256),
+           (1, 64, 160), (4, 23, 40), (16, 33, 300), (64, 1024, 4096)]
+          + [(m, n, k) for m in MS
+             for n, k in ((1024, 4096), (4096, 14336), (1023, 301))])
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -57,6 +64,50 @@ def test_kernel_takes_strided_rows(cuda):
     x = wide[:, 8:32]
     torch.testing.assert_close(chunked_matmul(x, w), ref.chunked_matmul(x, w),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_kernel_takes_misaligned_rows(cuda, m, dtype):
+    """Rows that start one element past a 16-byte boundary take the scalar
+    path; the same values copied to an aligned tensor take the vector
+    path.  Both match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    dt, k = getattr(torch, dtype), 4096
+    wide = torch.randn(m, k + 1, generator=gen, device=cuda).to(dt)
+    w = (torch.randn(300, k, generator=gen, device=cuda) / k ** 0.5).to(dt)
+    x = wide[:, 1:k + 1]
+    dense = x.clone(memory_format=torch.contiguous_format)
+    assert not _aligned(x, w) and _aligned(dense, w)
+    want = ref.chunked_matmul(x, w).float()
+    for xi in (x, dense):
+        torch.testing.assert_close(chunked_matmul(xi, w).float(), want,
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("m", [1, 64])
+def test_split_k_launches_are_bit_identical(cuda, m):
+    """Split K adds its partials in a fixed order: no float atomics."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(m, 4096, generator=gen, device=cuda)
+    w = torch.randn(1024, 4096, generator=gen, device=cuda)
+    assert _plan(m, 1024, 4096, torch.float32, True).splits > 1
+    first = chunked_matmul(x, w)
+    assert all(torch.equal(first, chunked_matmul(x, w)) for _ in range(3))
+
+
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_chunk_size_never_changes_bits(cuda, m):
+    """The chunk tables of one matrix at chunk sizes 16, 64 and 256, viewed
+    as [rows, K] as the executor does, give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    n, k = 1024, 4096
+    x = torch.randn(m, k, generator=gen, device=cuda)
+    w = torch.randn(n, k, generator=gen, device=cuda)
+    outs = [chunked_matmul(x.view(m, k // cs, cs).reshape(m, k),
+                           w.view(n, k // cs, cs).reshape(n, k))
+            for cs in (16, 64, 256)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 def test_mixed_devices_raise(cuda):
