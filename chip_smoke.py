@@ -20,6 +20,7 @@ phase 3).
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import statistics
@@ -41,8 +42,12 @@ N_LAYERS = 32
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory bytes/s
 # and non-tensor-core float32 FLOP/s.  The bound of a kernel is the larger
-# of bytes / memory rate and flops / f32 rate.
+# of bytes / memory rate and flops / the rate of the units it computes on:
+# the f32 rate for K1 and K2; for K3, which multiplies on the tensor cores,
+# dense TF32 over 3 in f32 (3xTF32: three products an element) and dense
+# bf16 in bf16 (its f32-FMA bound is reported beside).
 PEAKS = (3.35e12, 67e12)
+TENSOR_PEAKS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
 # K1: the sweep of tests/test_kernels.py, then ragged N, a K that is no
 # multiple of the 16-byte vector (the scalar path) and split-K shapes
@@ -113,7 +118,8 @@ def phase_device():
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on"
     assert torch.get_float32_matmul_precision() == "highest"
     log(f"bounds use the H100 SXM peaks: {PEAKS[0] / 1e12} TB/s, "
-        f"{PEAKS[1] / 1e12} TFLOP/s f32")
+        f"{PEAKS[1] / 1e12} TFLOP/s f32; K3 on the tensor cores at "
+        f"{TENSOR_PEAKS[torch.float32] / 1e12:.0f} TFLOP/s (TF32 / 3)")
     return name
 
 
@@ -138,8 +144,8 @@ def phase_build():
 
 def phase_kernels():
     from repro_torch.kernels import chunked_matmul, ref
-    from repro_torch.kernels.chunked_matmul import (_aligned, _plan,
-                                                    _sm_count)
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.chunked_matmul import _aligned, _plan
     log("== phase 3: K1 chunked_matmul against its plain version")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -178,7 +184,7 @@ def phase_kernels():
             assert torch.equal(got, again), f"{label} M={m}: not repeatable"
             err = (got - want).abs().max().item()
             max_err = max(max_err, err)
-            plan = _plan(m, n, k, x.dtype, _aligned(x, w), _sm_count(dev))
+            plan = _plan(m, n, k, x.dtype, _aligned(x, w), sm_count(dev))
             bound, by = _bound(4 * (m * k + n * k + m * n), 2 * m * n * k)
             row = {
                 "site": label, "M": m, "N": n, "K": k,
@@ -221,9 +227,10 @@ def phase_kernels():
     return steps, max_err
 
 
-def _bound(nbytes: float, flops: float):
-    """(bound in ms, what bounds it) on the H100 SXM peaks."""
-    t_bytes, t_ops = nbytes / PEAKS[0], flops / PEAKS[1]
+def _bound(nbytes: float, flops: float, rate: float = PEAKS[1]):
+    """(bound in ms, what bounds it) on the H100 SXM peaks, the flops at
+    ``rate`` (default the f32 rate of the CUDA cores)."""
+    t_bytes, t_ops = nbytes / PEAKS[0], flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -251,6 +258,9 @@ def phase_attention_kernels(flush):
     main path's shapes, with kernel, plain, library and bound times."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from repro_torch.kernels import flash_attention, paged_attention, ref
+    from repro_torch.kernels._build import sm_count
+    K2 = importlib.import_module("repro_torch.kernels.paged_attention")
+    K3 = importlib.import_module("repro_torch.kernels.flash_attention")
     log("== phase 3: K2 paged_attention and K3 flash_attention against their "
         "plain versions")
     dev = torch.device("cuda")
@@ -292,23 +302,29 @@ def phase_attention_kernels(flush):
         f"{e:.2e} against the plain version over the mapped pages)")
 
     H, Hkv, d, S = N_HEADS, N_KV, HEAD_DIM, MAX_LEN
+    sms = sm_count(dev)
     rows = []
 
-    def row(name, shape, kernel, plain, library, nbytes, flops):
+    def row(name, shape, plan, kernel, plain, library, nbytes, flops,
+            rate=PEAKS[1]):
         got, want, lib = kernel(), plain(), library()
         e = check(name, got, want, torch.float32)
-        bound, by = _bound(nbytes, flops)
-        r = {"kernel": name, "shape": shape,
+        bound, by = _bound(nbytes, flops, rate)
+        r = {"kernel": name, "shape": shape, "plan": plan,
              "kernel_ms": time_ms(kernel, flush),
              "plain_ms": time_ms(plain, flush),
              "library_ms": time_ms(library, flush),
              "bound_ms": bound, "bound_by": by, "max_abs_err": e,
              "library_err": (lib.float() - want.float()).abs().max().item()}
+        extra = ""
+        if rate != PEAKS[1]:
+            r["bound_f32_fma_ms"] = _bound(nbytes, flops)[0]
+            extra = f" (f32 FMA {r['bound_f32_fma_ms'] * 1e3:.3f} us)"
         rows.append(r)
         log(f"  {name} {shape:24s} kernel {r['kernel_ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-            f"bound {bound * 1e3:.3f} us ({by})  max|err| {e:.2e}  library "
-            f"max|err| {r['library_err']:.2e}")
+            f"bound {bound * 1e3:.3f} us ({by}){extra}  max|err| {e:.2e}  "
+            f"library max|err| {r['library_err']:.2e}  plan: {plan}")
         return r
 
     log(f"main-path shapes, f32: H {H}, Hkv {Hkv}, d {d}, cache {S} rows")
@@ -329,7 +345,10 @@ def phase_attention_kernels(flush):
             :, None, None, :]
         kl, vl = cache_k.permute(0, 2, 1, 3), cache_v.permute(0, 2, 1, 3)
         live = sum(lens)
+        plan = K2._plan(B, Hkv, S // page, page, d, torch.float32, sms)
         r = row("paged_attention", f"B={B} len={lens}",
+                f"{plan.n_split} splits a (sequence, KV head) in one cluster, "
+                f"{plan.blocks} blocks",
                 lambda: paged_attention(q, kp, vp, pt, ln),
                 lambda: ref.paged_attention(q, kp, vp, pt, ln),
                 lambda: sdpa(q[:, :, None], kl, vl, attn_mask=mask,
@@ -348,12 +367,16 @@ def phase_attention_kernels(flush):
         v = torch.randn(S, Hkv, d, generator=gen,
                         device=dev).permute(1, 0, 2)[None]
         pairs = sum(min(t + 1, S) for t in range(T))
+        plan = K3._plan(1, T, S, H, Hkv, d, torch.float32, sms)
         r = row("flash_attention", f"T={T} S={S}",
+                f"{plan.warps} warps on {plan.heads} heads x {plan.rows} "
+                f"rows, {plan.bk}-row K/V tiles, "
+                f"{'balanced, ' if plan.balance else ''}{plan.blocks} blocks",
                 lambda: flash_attention(q, k, v, True),
                 lambda: ref.flash_attention(q, k, v, True),
                 lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
                 4 * (2 * T * H * d + 2 * min(T, S) * Hkv * d),
-                4 * H * d * pairs)
+                4 * H * d * pairs, TENSOR_PEAKS[torch.float32])
         if T == FLASH_STEP:
             step["flash_attention"] = r
     for name, r in step.items():
@@ -651,6 +674,9 @@ def main() -> int:
             "plain_ms": N_LAYERS * r["plain_ms"],
             "bound_ms": N_LAYERS * r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": N_LAYERS * r["library_ms"],
+            **({"bound_f32_fma_ms": N_LAYERS * r["bound_f32_fma_ms"]}
+               if "bound_f32_fma_ms" in r else {}),
+            "plan": r["plan"],
             "times_are": f"{what}'s {N_LAYERS} launches at {r['shape']}, "
                          f"{N_LAYERS} x the per-launch median"})
     log(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@ imported: the machines without ``nvcc`` import every module.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -67,3 +69,36 @@ def library(name: str, argtypes: Dict[str, Sequence]) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
+
+
+def aligned16(*tensors) -> bool:
+    """Whether 16-byte loads can read every row of each tensor: an aligned
+    base pointer, and every stride but the inner one a multiple of 16
+    bytes (a dimension of size 1 has no stride that is read).  The
+    attention kernels take a scalar path where this is false."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+        size = t.element_size()
+        for s, n in zip(t.stride()[:-1], t.shape[:-1]):
+            if s * size % 16 and n != 1:
+                return False
+    return True
+
+
+def on_device(device):
+    """``torch.cuda.device(device)``, or nothing where ``device`` is already
+    the current one (the usual case: a launch then costs no device switch
+    on the host)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device (the kernels' plans
+    size their grids to fill one wave of them)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -49,8 +49,6 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _REGIMES = {"decode": 0, "prefill": 1}
 
-SMS = 132                  # streaming multiprocessors of an H100 SXM
-                           # (the plan's default; the wrapper reads the card)
 DECODE_MAX_M = 16          # rows the GEMV takes
 # decode: 8 warps a block, 2 W rows a warp for one X row and 4 beyond
 # (padded X rows -> W rows of a block); K in 4 slabs (a cluster of four,
@@ -93,7 +91,7 @@ def _pow2_ceil(n: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _plan(M: int, N: int, K: int, dtype: torch.dtype, aligned: bool,
-          sms: int = SMS) -> Plan:
+          sms: int) -> Plan:
     """The tiling of one ``[M, K] x [N, K]ᵀ`` call on a card with ``sms``
     streaming multiprocessors.
 
@@ -143,11 +141,6 @@ def _aligned(x: torch.Tensor, w: torch.Tensor) -> bool:
                     for t in (x, w)))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def build():
     """Compile ``csrc/chunked_matmul.cu`` (see ``_build.build``); returns
     the shared library's path."""
@@ -191,7 +184,8 @@ def chunked_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    plan = _plan(M, N, K, x.dtype, _aligned(x, w), _sm_count(x.device))
+    plan = _plan(M, N, K, x.dtype, _aligned(x, w),
+                 _build.sm_count(x.device))
     ws = (torch.empty(plan.workspace // 4, dtype=torch.float32,
                       device=x.device) if plan.workspace else None)
     fn = getattr(_library(), _DTYPES[x.dtype])

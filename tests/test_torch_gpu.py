@@ -18,6 +18,7 @@ from repro_torch.core.llama_graph import (LlamaSpec,  # noqa: E402
                                           init_llama_params)
 from repro_torch.kernels import (chunked_matmul,  # noqa: E402
                                  flash_attention, paged_attention, ref)
+from repro_torch.kernels._build import sm_count  # noqa: E402
 from repro_torch.kernels.chunked_matmul import _aligned, _plan  # noqa: E402
 from repro_torch.serving.engine import RelationalEngine  # noqa: E402
 
@@ -91,7 +92,8 @@ def test_split_k_launches_are_bit_identical(cuda, m):
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(m, 4096, generator=gen, device=cuda)
     w = torch.randn(1024, 4096, generator=gen, device=cuda)
-    assert _plan(m, 1024, 4096, torch.float32, True).splits > 1
+    assert _plan(m, 1024, 4096, torch.float32, True,
+                 sm_count(x.device)).splits > 1
     first = chunked_matmul(x, w)
     assert all(torch.equal(first, chunked_matmul(x, w)) for _ in range(3))
 
@@ -248,3 +250,135 @@ def test_paged_attention_rejects_page_ids_past_the_pool(cuda):
     with pytest.raises(IndexError):
         paged_attention(q, kp, vp, bad, ln)
     assert paged_attention.launches == launches
+
+
+# ---------------------------------------------------------------------------
+# K2 split-K and K3 on the tensor cores, at the main path's widths
+# ---------------------------------------------------------------------------
+
+import importlib  # noqa: E402
+
+from repro_torch.kernels._build import aligned16  # noqa: E402
+
+K2 = importlib.import_module("repro_torch.kernels.paged_attention")
+K3 = importlib.import_module("repro_torch.kernels.flash_attention")
+
+
+def _main_paged(cuda, B, dtype, seed=0):
+    """The executor's decode view at Llama-3-8B widths: a [B, 512, 8, 128]
+    cache as 64-row pages with an identity page table, 32 query heads."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    S, Hkv, d = 512, 8, 128
+    ck = _randn(gen, (B, S, Hkv, d), cuda, dtype)
+    cv = _randn(gen, (B, S, Hkv, d), cuda, dtype)
+    q = _randn(gen, (B, 32, d), cuda, dtype)
+    pt = torch.arange(B * 8, dtype=torch.int32, device=cuda).view(B, 8)
+    return q, ck.view(B * 8, 64, Hkv, d), cv.view(B * 8, 64, Hkv, d), pt
+
+
+def _check_lengths(got, q, kp, vp, pt, ln, tol):
+    """Zeros at length 0, the plain version's result elsewhere."""
+    live = ln > 0
+    assert torch.count_nonzero(got[~live]) == 0
+    if live.any():
+        want = ref.paged_attention(q, kp, vp, pt, ln)
+        torch.testing.assert_close(got[live].float(), want[live].float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_paged_attention_every_length_to_130(cuda, B, dtype):
+    """Every length 0..130 (across the 16-slot split boundaries and the
+    64-row pages) at the main path's widths; at B = 4 the sequences take
+    lengths n, n + 17, n + 40 and 512 - n."""
+    dt = getattr(torch, dtype)
+    q, kp, vp, pt = _main_paged(cuda, B, dt)
+    for n in range(131):
+        lens = [n, n + 17, n + 40, 512 - n][:B]
+        ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        got = paged_attention(q, kp, vp, pt, ln)
+        torch.cuda.synchronize()
+        _check_lengths(got, q, kp, vp, pt, ln, TOL[dtype])
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4, 8, 9, 16])
+def test_paged_attention_merge_routes_agree(cuda, n_split):
+    """The cluster merge at cluster sizes from one block through the
+    portable 8 to the non-portable 16 gives the plain version's result at
+    B = 4 (lengths 0, 33, 100 and 512)."""
+    q, kp, vp, pt = _main_paged(cuda, 4, torch.float32, seed=1)
+    ln = torch.tensor([0, 33, 100, 512], dtype=torch.int32, device=cuda)
+    plan = K2.Plan(n_split=n_split, c_min=16, blocks=4 * 8 * n_split)
+    got = K2._launch(q, kp, vp, pt, ln, plan)
+    torch.cuda.synchronize()
+    _check_lengths(got, q, kp, vp, pt, ln, TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_paged_attention_launches_are_bit_identical(cuda, dtype):
+    """The splits are merged in split order: no float atomics."""
+    q, kp, vp, pt = _main_paged(cuda, 4, getattr(torch, dtype), seed=2)
+    ln = torch.tensor([33, 72, 100, 512], dtype=torch.int32, device=cuda)
+    first = paged_attention(q, kp, vp, pt, ln)
+    assert all(torch.equal(first, paged_attention(q, kp, vp, pt, ln))
+               for _ in range(3))
+
+
+@pytest.mark.parametrize("S", ["T", 512])
+@pytest.mark.parametrize("T", [1, 16, 17, 63, 64, 65, 512])
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_flash_attention_main_widths(cuda, T, S, dtype):
+    """Llama-3-8B widths (32 query heads over 8 KV heads, d 128) as the
+    executor passes them: q a [1, 32, T, 128] view of a [T, 32, 128]
+    table, k/v [1, 8, S, 128] views of [S, 8, 128] tables."""
+    S = T if S == "T" else S
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(T * 1000 + S)
+    q = _randn(gen, (T, 32, 128), cuda, dt).permute(1, 0, 2)[None]
+    k = _randn(gen, (S, 8, 128), cuda, dt).permute(1, 0, 2)[None]
+    v = _randn(gen, (S, 8, 128), cuda, dt).permute(1, 0, 2)[None]
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_flash_attention_launches_are_bit_identical(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    dt = getattr(torch, dtype)
+    q = _randn(gen, (512, 32, 128), cuda, dt).permute(1, 0, 2)[None]
+    k = _randn(gen, (512, 8, 128), cuda, dt).permute(1, 0, 2)[None]
+    v = _randn(gen, (512, 8, 128), cuda, dt).permute(1, 0, 2)[None]
+    assert K3._plan(1, 512, 512, 32, 8, 128, dt, sm_count(q.device)).balance
+    first = flash_attention(q, k, v)
+    assert all(torch.equal(first, flash_attention(q, k, v))
+               for _ in range(3))
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_attention_kernels_take_misaligned_views(cuda, dtype):
+    """Pools and K/V that start one element off the 16-byte grid take the
+    kernels' scalar load paths."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    n = 16 * 8 * 2 * 64
+    kp = _randn(gen, (n + 1,), cuda, dt)[1:].view(16, 8, 2, 64)
+    vp = _randn(gen, (n + 1,), cuda, dt)[1:].view(16, 8, 2, 64)
+    q = _randn(gen, (3, 8, 64), cuda, dt)
+    pt = torch.arange(12, dtype=torch.int32, device=cuda).view(3, 4)
+    ln = torch.tensor([5, 17, 32], dtype=torch.int32, device=cuda)
+    assert not aligned16(kp, vp)
+    torch.testing.assert_close(paged_attention(q, kp, vp, pt, ln).float(),
+                               ref.paged_attention(q, kp, vp, pt, ln).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    k = kp.view(1, 2, 128, 64)
+    v = vp.view(1, 2, 128, 64)
+    qf = _randn(gen, (1, 8, 40, 64), cuda, dt)
+    assert not aligned16(k, v)
+    torch.testing.assert_close(flash_attention(qf, k, v).float(),
+                               ref.flash_attention(qf, k, v).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])

@@ -241,3 +241,123 @@ def test_attention_wrappers_reject(kernel, case):
     with pytest.raises((ValueError, TypeError)):
         fn(*args)
     assert fn.calls == calls
+
+
+# ---------------------------------------------------------------------------
+# K2's split-K flash-decoding, modelled on the CPU
+# ---------------------------------------------------------------------------
+#
+# The CUDA kernel splits each (sequence, KV head) over ``_plan``'s n_split
+# blocks, each taking the slots [s·c, min((s+1)·c, len)) with
+# c = ceil(len / n_split) rounded up to a multiple of c_min, skipping
+# unmapped pages, and merges the blocks' (max, sum, accumulator) states in
+# split order; an empty split's state (max −∞, sum 0) weighs nothing.  The
+# model below does the same arithmetic in plain torch, so the ranges, the
+# empty-split rule and the merge are held against the Pallas kernel here,
+# where no card is.
+
+import importlib  # noqa: E402
+
+_K2 = importlib.import_module("repro_torch.kernels.paged_attention")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _split_model(q, kp, vp, pt, lens, plan):
+    B, H, d = q.shape
+    page, Hkv = kp.shape[1], kp.shape[2]
+    g, cap = H // Hkv, pt.shape[1] * page
+    out = torch.zeros(B, H, d)
+    for b in range(B):
+        n = max(0, min(int(lens[b]), cap))
+        c = max(1, _cdiv(_cdiv(n, plan.n_split), plan.c_min)) * plan.c_min
+        for hk in range(Hkv):
+            qg = q[b, hk * g:(hk + 1) * g].float()
+            ms, ls, accs = [], [], []
+            for s in range(plan.n_split):
+                a0 = min(s * c, n)
+                slots = [t for t in range(a0, min(a0 + c, n))
+                         if pt[b, t // page] >= 0]
+                if not slots:  # the empty state
+                    ms.append(torch.full((g,), -torch.inf))
+                    ls.append(torch.zeros(g))
+                    accs.append(torch.zeros(g, d))
+                    continue
+                rows = [(int(pt[b, t // page]), t % page) for t in slots]
+                k = torch.stack([kp[p, o, hk] for p, o in rows]).float()
+                v = torch.stack([vp[p, o, hk] for p, o in rows])
+                sc = qg @ k.T / d ** 0.5
+                m = sc.max(-1).values
+                p = torch.exp(sc - m[:, None])
+                ms.append(m)
+                ls.append(p.sum(-1))
+                accs.append(p.to(v.dtype).float() @ v.float())
+            mm = torch.stack(ms).max(0).values
+            w = [torch.where(m == -torch.inf, 0.0, torch.exp(m - mm))
+                 for m in ms]
+            lsum = sum(wi * li for wi, li in zip(w, ls))
+            acc = sum(wi[:, None] * ai for wi, ai in zip(w, accs))
+            out[b, hk * g:(hk + 1) * g] = acc / lsum.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+def _split_inputs(lens, seed):
+    """B = len(lens), H 8, Hkv 2, d 32, pages of 8, 8 pages a sequence
+    (capacity 64) in a pool of 20, mapped in shuffled order."""
+    B, H, Hkv, d, page, P, MP = len(lens), 8, 2, 32, 8, 20, 8
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    kp = rng.standard_normal((P, page, Hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((P, page, Hkv, d)).astype(np.float32)
+    pt = np.full((B, MP), -1, np.int32)
+    used = iter(rng.permutation(P))
+    for b in range(B):
+        for i in range(_cdiv(lens[b], page)):
+            pt[b, i] = next(used)
+    return q, kp, vp, pt, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 64])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_split_model_matches_pallas_kernel(n, dtype):
+    """Lengths 0, 1, page − 1, page, page + 1 and the capacity, beside a
+    33-row sequence: four splits of 16 slots, so the short lengths leave
+    splits empty."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, kp, vp, pt, ln = _split_inputs([n, 33], seed=n)
+    plan = _K2._plan(2, 2, pt.shape[1], 8, 32, tdt, 132)
+    assert plan.n_split == 4 and plan.c_min == 16
+    want = jops.paged_attention(*(jnp.asarray(a, jdt) for a in (q, kp, vp)),
+                                jnp.asarray(pt), jnp.asarray(ln),
+                                interpret=True)
+    got = _split_model(*(torch.from_numpy(a).to(tdt) for a in (q, kp, vp)),
+                       torch.from_numpy(pt), torch.from_numpy(ln), plan)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    if n == 0:
+        assert not got[0].any()
+
+
+def test_split_model_skips_an_unmapped_page():
+    """Sequence 0 (length 20, pages of 8) without its page 1: the model
+    skips it, as the CUDA kernel does, and equals the Pallas kernel over
+    the table without that page (length 12).  (The Pallas kernel itself
+    reads pool page 0 for an unmapped entry: its wrapper hands the kernel
+    the table with -1 replaced by 0.)"""
+    q, kp, vp, pt, ln = _split_inputs([20, 33], seed=5)
+    holed = pt.copy()
+    holed[0, 1] = -1
+    compact = pt.copy()
+    compact[0, 1:] = np.append(pt[0, 2:], -1)
+    plan = _K2._plan(2, 2, pt.shape[1], 8, 32, torch.float32, 132)
+    got = _split_model(*(torch.from_numpy(a) for a in (q, kp, vp)),
+                       torch.from_numpy(holed), torch.from_numpy(ln), plan)
+    want = jops.paged_attention(*(jnp.asarray(a) for a in (q, kp, vp)),
+                                jnp.asarray(compact),
+                                jnp.asarray(np.array([12, 33], np.int32)),
+                                interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
