@@ -5,17 +5,22 @@
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit's ``nvcc``.  It builds every hand-written kernel from the sources in
-this checkout, holds each against its plain PyTorch version on the card,
-runs the engine at Llama-3-8B width on the card against the same engine on
-the CPU (depth 2, a single sequence and a batched decoder), then serves a
-few requests at full width and depth through ``ContinuousBatcher`` →
-``BatchedDecoder`` → ``RelationalEngine`` and checks that every GEMM of that
-run went through K1 ``chunked_matmul``, every decode attention through K2
-``paged_attention`` and every prefill attention through K3
-``flash_attention``.  Any failure exits non-zero.  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels
-with their launches, errors and times (the per-shape times are printed in
-phase 3).
+this checkout, holds each against its plain PyTorch version on the card
+(K3 also with the suffix prefill's causal offset), runs the engine at
+Llama-3-8B width on the card against the same engine on the CPU (depth 2,
+a single sequence, a batched decoder and a suffix session over a cached
+prefix), then serves at full width and depth through ``ContinuousBatcher``
+→ ``BatchedDecoder`` → ``RelationalEngine``: a few cold requests (phase 5),
+then chatbot traffic over a 448-token shared prefix through the prefix
+cache in both bind modes with a metrics registry attached (phase 6).  Each
+serving run checks that every GEMM went through K1 ``chunked_matmul``,
+every decode attention (and one-token suffix) through K2
+``paged_attention`` and every prefill attention (cold, or a suffix over a
+cached prefix) through K3 ``flash_attention``; phase 6 also checks the
+hits, the metrics and the tokens against a decoder without the cache.
+Any failure exits non-zero.  The last line is ``{"ok": true, "device":
+{...}}``; the line before it lists the kernels with their launches,
+errors and times (the per-shape times are printed in phase 3).
 """
 
 from __future__ import annotations
@@ -71,9 +76,18 @@ HEAD_DIM, MAX_LEN = D_MODEL // N_HEADS, 512
 PAGED_MAIN = [(1, [33]), (1, [72]), (1, [512]), (4, [33] * 4), (4, [72] * 4),
               (4, [512] * 4), (4, [33, 72, 100, 512])]
 FLASH_MAIN = [32, 64, 512]
+# K3 in the prefix cache's suffix prefill: (T new tokens, q_offset cached
+# rows) over the same cache, the chatbot shape (a 448-token shared prefix)
+FLASH_SUFFIX = [(32, 448), (16, 448), (48, 448)]
 # the shapes the kernels JSON line reports: one decode tick of phase 5's
-# mixed batch, one prefill of a 64-token prompt (32 launches each)
-PAGED_STEP, FLASH_STEP = (4, [33, 72, 100, 512]), 64
+# mixed batch, one prefill of a 64-token prompt, one 32-token suffix
+# prefill over a 448-row prefix (32 launches each)
+PAGED_STEP, FLASH_STEP, SUFFIX_STEP = (4, [33, 72, 100, 512]), 64, (32, 448)
+# phase 6: chatbot traffic with a long shared system prompt — one donor of
+# a 448-token prefix (28 blocks of 16) plus 16 tokens, then five requests
+# of the same prefix plus unique tails, 8 new tokens each
+SHARED_PREFIX, DONOR_TAIL, HIT_TAILS, NEW_TOKENS = 448, 16, (1, 8, 16, 32,
+                                                             48), 8
 # the sweeps of tests/test_kernels.py
 PAGED_SWEEP = [[5, 17, 32], [1, 1, 1], [32, 8, 24]]
 FLASH_SWEEP = [(32, 32, 16, True), (64, 64, 32, True), (32, 64, 16, False),
@@ -379,9 +393,37 @@ def phase_attention_kernels(flush):
                 4 * H * d * pairs, TENSOR_PEAKS[torch.float32])
         if T == FLASH_STEP:
             step["flash_attention"] = r
+    for T, off in FLASH_SUFFIX:
+        # a suffix prefill over a cached prefix: query row t at position
+        # off + t sees keys s <= off + t; the library is SDPA with the same
+        # boolean mask (its is_causal is top-left aligned); the bound counts
+        # the off + T K/V rows the rows read
+        q = torch.randn(T, H, d, generator=gen,
+                        device=dev).permute(1, 0, 2)[None]
+        k = torch.randn(S, Hkv, d, generator=gen,
+                        device=dev).permute(1, 0, 2)[None]
+        v = torch.randn(S, Hkv, d, generator=gen,
+                        device=dev).permute(1, 0, 2)[None]
+        mask = (torch.arange(S, device=dev)[None, :]
+                <= torch.arange(T, device=dev)[:, None] + off)
+        pairs = sum(min(off + t + 1, S) for t in range(T))
+        plan = K3._plan(1, T, S, H, Hkv, d, torch.float32, sms)
+        r = row("flash_attention", f"T={T} offset={off} S={S}",
+                f"{plan.warps} warps on {plan.heads} heads x {plan.rows} "
+                f"rows, {plan.bk}-row K/V tiles, "
+                f"{'balanced, ' if plan.balance else ''}{plan.blocks} blocks",
+                lambda: flash_attention(q, k, v, True, q_offset=off),
+                lambda: ref.flash_attention(q, k, v, True, q_offset=off),
+                lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True),
+                4 * (2 * T * H * d + 2 * min(off + T, S) * Hkv * d),
+                4 * H * d * pairs, TENSOR_PEAKS[torch.float32])
+        if (T, off) == SUFFIX_STEP:
+            step["suffix"] = r
     for name, r in step.items():
-        log(f"one {'decode tick' if name == 'paged_attention' else 'prefill'}"
-            f"'s {N_LAYERS} {name} launches at {r['shape']}: kernel "
+        what = {"paged_attention": "decode tick",
+                "flash_attention": "prefill",
+                "suffix": "suffix prefill"}[name]
+        log(f"one {what}'s {N_LAYERS} launches at {r['shape']}: kernel "
             f"{N_LAYERS * r['kernel_ms']:.3f} ms, plain "
             f"{N_LAYERS * r['plain_ms']:.3f} ms, library "
             f"{N_LAYERS * r['library_ms']:.3f} ms, bound "
@@ -479,9 +521,36 @@ def phase_engine_parity():
         f"{spec.n_layers} x {decodes} decode run_pipeline calls, "
         f"flash_attention launches {flash_attention.launches} = "
         f"{spec.n_layers} x {prefills} prefill calls")
+
+    # the prefix cache's suffix session: a 48-token prefix, then 8 suffix
+    # tokens over its caches (K3 with q_offset 48), against the CPU port's
+    # suffix session and the card's own cold session of all 56 tokens
+    rng = np.random.default_rng(5)
+    prompt = [int(t) for t in rng.integers(0, VOCAB, 56)]
+    suffix = {}
+    for d, e in engines.items():
+        tables = {k: v for k, v in e.start_session(prompt[:48])[
+            "env"].items() if k.startswith(("k_cache", "v_cache"))}
+        snap = {k: t.cols[c].clone() for k, t in tables.items()
+                for c in t.cols}
+        before = (paged_attention.launches, flash_attention.launches)
+        suffix[d] = e.start_suffix_session(prompt, 48, tables)["logits"]
+        launched = (paged_attention.launches - before[0],
+                    flash_attention.launches - before[1])
+        assert launched == ((0, spec.n_layers) if d == "cuda" else (0, 0)), (
+            d, launched)
+        assert all(torch.equal(snap[k], t.cols[c])
+                   for k, t in tables.items() for c in t.cols), \
+            "the suffix session wrote the prefix's caches"
+    sdiff = _assert_logits(suffix["cuda"], suffix["cpu"])
+    cdiff = _assert_logits(suffix["cuda"],
+                           engines["cuda"].start_session(prompt)["logits"])
+    log(f"suffix session, 48-token prefix + 8 tokens (K3 q_offset 48, "
+        f"{spec.n_layers} launches): max|Δlogit| GPU vs CPU "
+        f"{sdiff:.3e}, GPU suffix vs GPU cold session {cdiff:.3e}")
     del engines, sess, params, decs
     torch.cuda.empty_cache()
-    return max(max_diff, bdiff)
+    return max(max_diff, bdiff, sdiff)
 
 
 def phase_serving(n_layers: int):
@@ -573,9 +642,168 @@ def phase_serving(n_layers: int):
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
     profile_tick(dec)
-    del eng, dec, kv
+    del dec, kv
     torch.cuda.empty_cache()
-    return launches
+    return launches, eng
+
+
+def _prefix_traffic():
+    """Phase 6's prompts: the donor, then the five hits."""
+    rng = np.random.default_rng(6)
+    shared = [int(t) for t in rng.integers(0, VOCAB, SHARED_PREFIX)]
+    donor = shared + [int(t) for t in rng.integers(0, VOCAB, DONOR_TAIL)]
+    return [donor] + [shared + [int(t) for t in rng.integers(0, VOCAB, n)]
+                      for n in HIT_TAILS]
+
+
+def _serve_prefix_traffic(eng, dec, prompts, metrics=None):
+    """The donor alone, then the five requests, through
+    ``ContinuousBatcher(max_batch=3)`` with ``prefill_ex``; returns the
+    requests by id, the scheduler and each request's prefill wall time
+    (host clock, ending in the logits' copy to the host)."""
+    from repro_torch.serving.kvcache import PagedKVCache, PagedKVConfig
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+    kv = PagedKVCache(PagedKVConfig(n_layers=eng.spec.n_layers, n_kv=N_KV,
+                                    head_dim=HEAD_DIM, page_size=16,
+                                    n_pages=128, max_pages_per_seq=32),
+                      max_seqs=3, device="cuda")
+    walls = {}
+
+    def prefill(req, seq_id):
+        kv.ensure_capacity(seq_id, len(req.context))
+        t0 = time.perf_counter()
+        res = dec.prefill_ex(req.context, seq_id)
+        walls[req.rid] = time.perf_counter() - t0
+        return res
+
+    sched = ContinuousBatcher(kv, prefill, dec.decode, max_batch=3,
+                              release_fn=dec.free, metrics=metrics)
+    sched.submit(Request(rid=0, prompt=prompts[0],
+                         max_new_tokens=NEW_TOKENS))
+    sched.run()
+    for rid, p in enumerate(prompts[1:], start=1):
+        sched.submit(Request(rid=rid, prompt=p, max_new_tokens=NEW_TOKENS))
+    done = sched.run()
+    torch.cuda.synchronize()
+    assert sorted(r.rid for r in done) == list(range(len(prompts))), done
+    assert all(len(r.generated) == NEW_TOKENS for r in done)
+    return {r.rid: r for r in done}, sched, walls
+
+
+def _first_divergence(eng, prompt, cold, other):
+    """(step, the cold engine's top-2 logit margin there) where two token
+    streams first differ, recomputed with start_session/session_step fed
+    the cold tokens; None where they agree."""
+    i = next((j for j, (a, b) in enumerate(zip(cold, other)) if a != b),
+             None)
+    if i is None:
+        return None
+    sess = eng.start_session(prompt)
+    for j in range(1, i + 1):
+        sess["tok"] = cold[j - 1]
+        eng.session_step(sess)
+    top2 = np.sort(sess["logits"])[-2:]
+    return i, float(top2[1] - top2[0])
+
+
+def phase_prefix_serving(eng):
+    """Prefix-cached serving at Llama-3-8B width on phase 5's engine: the
+    reference's default decoder (``prefix_block=16``) under chatbot
+    traffic with a long shared system prompt, once per bind mode, with a
+    metrics registry attached; the tokens held against a cold decoder's."""
+    from repro_torch import kernels
+    from repro_torch.obs import MetricsRegistry
+    n_layers = eng.spec.n_layers
+    log(f"== phase 6: prefix-cached serving at Llama-3-8B width, {n_layers} "
+        f"layers: a {SHARED_PREFIX}-token shared prefix, a donor + "
+        f"{len(HIT_TAILS)} hits (tails {list(HIT_TAILS)}), {NEW_TOKENS} new "
+        f"tokens each")
+    prompts = _prefix_traffic()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng._prefill_pipe(len(p))
+    for n in HIT_TAILS:
+        eng._prefill_pipe(n, suffix=True)
+    log(f"plans compiled (cold T={sorted({len(p) for p in prompts})}, "
+        f"suffix T={list(HIT_TAILS)}) in {time.perf_counter() - t0:.2f} s")
+    cold_dec = eng.batched_decoder(max_seqs=3, prefix_block=0)
+    cold, _, cold_walls = _serve_prefix_traffic(eng, cold_dec, prompts)
+    del cold_dec
+    wrappers = [getattr(kernels, name) for name in KERNELS]
+    per_call = 7 * n_layers + 1
+    launches, served, ttft = {}, {}, {}
+    for mode in ("copy", "share"):
+        # the registry reaches the engine, the decoder, its prefix cache
+        # and the scheduler
+        reg = eng.metrics = MetricsRegistry()
+        dec = eng.batched_decoder(max_seqs=3, prefix_block=16,
+                                  prefix_bind=mode)
+        for fn in wrappers:
+            fn.launches = fn.calls = 0
+        done, sched, walls = _serve_prefix_traffic(eng, dec, prompts, reg)
+        run = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+        assert all(fn.calls == fn.launches for fn in wrappers), [
+            (fn.calls, fn.launches) for fn in wrappers]
+        pc = dec.prefix_cache
+        cached = [done[r].cached_tokens for r in range(1, len(prompts))]
+        assert cached == [SHARED_PREFIX] * len(HIT_TAILS), cached
+        assert pc.stats.hits == len(HIT_TAILS), vars(pc.stats)
+        hits = reg.counter("serving_prefills_total", kind="prefix_hit").value
+        assert hits == len(HIT_TAILS), reg.render_prometheus()
+        prefills = sched.stats.prefills
+        suffix_k3 = sum(n > 1 for n in HIT_TAILS)
+        suffix_k2 = len(HIT_TAILS) - suffix_k3
+        cold_prefills = prefills - len(HIT_TAILS)
+        assert run["chunked_matmul"] == per_call * (
+            prefills + dec.decode_calls), (run, prefills, dec.decode_calls)
+        assert run["flash_attention"] == n_layers * (
+            cold_prefills + suffix_k3), run
+        assert run["paged_attention"] == n_layers * (
+            dec.decode_calls + suffix_k2), run
+        launches[mode] = run
+        served[mode] = {r: req.generated for r, req in done.items()}
+        ttft[mode] = {r: (req.first_token_s, walls[r])
+                      for r, req in done.items()}
+        log(f"[{mode}] prefills {prefills} (cold {sched.stats.prefills_cold},"
+            f" prefix hits {sched.stats.prefills_prefix_hit}), decode ticks "
+            f"{dec.decode_calls}; launches: chunked_matmul "
+            f"{run['chunked_matmul']} = {per_call} x "
+            f"{prefills + dec.decode_calls} run_pipeline calls, "
+            f"flash_attention {run['flash_attention']} = {n_layers} x "
+            f"({cold_prefills} cold + {suffix_k3} suffix prefills of T > 1), "
+            f"paged_attention {run['paged_attention']} = {n_layers} x "
+            f"({dec.decode_calls} decode ticks + {suffix_k2} one-token "
+            f"suffix)")
+        for r in sorted(done):
+            kind = "donor" if r == 0 else (
+                f"hit, tail {len(prompts[r]) - SHARED_PREFIX}")
+            log(f"  [{mode}] req{r} ({kind}, {len(prompts[r])} tokens, "
+                f"cached {done[r].cached_tokens}): ttft "
+                f"{done[r].first_token_s * 1e3:.1f} ms, prefill "
+                f"{walls[r] * 1e3:.1f} ms (cold decoder "
+                f"{cold_walls[r] * 1e3:.1f} ms), tokens {done[r].generated}")
+        log(f"  [{mode}] prefix cache: {len(pc._segments)} segments, "
+            f"resident_bytes {pc.resident_bytes} "
+            f"({pc.resident_bytes / 1e9:.3f} GB), stats {vars(pc.stats)}")
+        for line in reg.render_prometheus().splitlines():
+            if line.startswith(("serving_prefills_total",
+                                "serving_prefix_cache_")):
+                log(f"  [{mode}] scrape: {line}")
+        eng.metrics = None
+        del dec, pc
+        torch.cuda.empty_cache()
+    assert served["copy"] == served["share"], served
+    worst = []
+    for r, p in enumerate(prompts):
+        div = _first_divergence(eng, p, cold[r].generated, served["copy"][r])
+        if div is not None:
+            assert div[1] <= 1e-3, (r, div)
+            worst.append((r, *div))
+    log("tokens: copy == share; against the prefix_block=0 decoder " + (
+        "identical" if not worst else
+        f"first divergences (req, step, cold top-2 margin) {worst}, each "
+        f"at a margin <= 1e-3"))
+    return launches, ttft
 
 
 def profile_tick(dec) -> None:
@@ -641,7 +869,18 @@ def main() -> int:
                                    phase_attention_kernels, flush)
     del flush
     timed("phase 4", phase_engine_parity)
-    launches = timed("phase 5", phase_serving, N_LAYERS)
+    serving, eng = timed("phase 5", phase_serving, N_LAYERS)
+    prefix, _ = timed("phase 6", phase_prefix_serving, eng)
+    del eng
+    torch.cuda.empty_cache()
+    # each main path's counts, zeroed just before it and read just after:
+    # phase 5's cold serving, phase 6's prefix-cached serving per bind mode
+    paths = {"serving": serving, "prefix_serving_copy": prefix["copy"],
+             "prefix_serving_share": prefix["share"]}
+    launches = {name: sum(p[name] for p in paths.values())
+                for name in KERNELS}
+    by_path = {name: {path: p[name] for path, p in paths.items()}
+               for name in KERNELS}
     log("kernels: K1 chunked_matmul: ok, K2 paged_attention: ok, "
         "K3 flash_attention: ok")
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
@@ -649,7 +888,8 @@ def main() -> int:
         "name": "chunked_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chunked_matmul.cu",
         "replaces": "src/repro/kernels/chunked_matmul.py:42",
-        "launches": launches["chunked_matmul"], "max_abs_err": max_err,
+        "launches": launches["chunked_matmul"],
+        "launches_by_path": by_path["chunked_matmul"], "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
         "library_ms": step["library_ms"],
@@ -669,6 +909,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": tpu_line, "launches": launches[name],
+            "launches_by_path": by_path[name],
             "max_abs_err": attn_err[name],
             "ms": N_LAYERS * r["kernel_ms"],
             "plain_ms": N_LAYERS * r["plain_ms"],
@@ -679,6 +920,15 @@ def main() -> int:
             "plan": r["plan"],
             "times_are": f"{what}'s {N_LAYERS} launches at {r['shape']}, "
                          f"{N_LAYERS} x the per-launch median"})
+    r = attn_step["suffix"]
+    kernels[-1]["suffix_prefill"] = {
+        "shape": r["shape"], "plan": r["plan"],
+        "ms": N_LAYERS * r["kernel_ms"], "plain_ms": N_LAYERS * r["plain_ms"],
+        "library_ms": N_LAYERS * r["library_ms"],
+        "bound_ms": N_LAYERS * r["bound_ms"], "bound_by": r["bound_by"],
+        "times_are": f"one suffix prefill's {N_LAYERS} launches, q_offset "
+                     f"{SUFFIX_STEP[1]}; library: SDPA with the boolean "
+                     f"offset mask"}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -25,9 +25,12 @@ The attention subplan of every layer — the score join
 ``γ_SUM(mul)(P ⋈ Vcache)`` — is recognised as one unit at its output
 GroupAgg and runs on one hand-written kernel: ``kernels.paged_attention``
 for a decode step (one query row per sequence, masked by that sequence's
-position; single or batched) and ``kernels.flash_attention`` for a prefill
-(T query rows, causal from offset 0).  Any other mask form (the suffix
-prefill's runtime offset) takes the generic operators.
+position; single or batched) and for a one-token suffix prefill (the same
+mask), and ``kernels.flash_attention`` for a prefill of T > 1 query rows:
+causal from offset 0 (cold), or from the runtime ``:cache_position`` of a
+suffix prefill over a cached prefix (``tp <= t + :cache_position``), passed
+to the kernel as its ``q_offset``.  Any other mask form takes the generic
+operators.
 
 Index tensors are ``int64`` throughout.  Where the JAX reference clamps an
 out-of-bounds gather index or drops an out-of-bounds scatter, this executor
@@ -594,7 +597,8 @@ class _AttentionSite:
     v_col: str
     out_col: str
     head_dim: int
-    offset: Optional[str]     # decode: Param name; batched: KeyParam name
+    offset: Optional[str]     # decode, suffix prefill: Param name;
+                              # batched: KeyParam name; cold prefill: None
 
 
 # id(node) → (weak reference to the node, its site or None).  Plans are
@@ -725,9 +729,11 @@ def _match_attention(node: GroupAgg) -> Optional[_AttentionSite]:
             and rhs.lhs == Key(t) and rhs.rhs == Const(0.0):
         kind, offset = "prefill", None
     elif not batched and isinstance(rhs, BinOp) and rhs.op == "+" \
-            and rhs.lhs == Key(t) and isinstance(rhs.rhs, Param) \
-            and out.key_size(t) == 1:
-        kind, offset = "decode", rhs.rhs.name
+            and rhs.lhs == Key(t) and isinstance(rhs.rhs, Param):
+        # one query row: the decode step, or a one-token suffix prefill
+        # (the same mask); more rows: a suffix prefill from the offset
+        kind = "decode" if out.key_size(t) == 1 else "prefill"
+        offset = rhs.rhs.name
     else:
         return None
     return _AttentionSite(kind=kind, q=j0.left, k=k_scan, v=v_scan,
@@ -768,7 +774,8 @@ def _try_fused_attention(node: GroupAgg, env, memo, scalars=None):
     pages with an identity page table, and the lengths are the positions
     + 1 (the batched ones stay on the device: no host sync).  Prefill goes
     to ``flash_attention`` with q ``[1, H, T, d]`` and k/v ``[1, Hkv, S, d]``
-    as strided views of the tables.  Both kernels read only the live rows.
+    as strided views of the tables, and a suffix prefill's offset (a host
+    int) as its ``q_offset``.  Both kernels read only the live rows.
     """
     site = _attention_site(node)
     if site is None:
@@ -785,10 +792,11 @@ def _try_fused_attention(node: GroupAgg, env, memo, scalars=None):
         def heads_first(t):  # [S, Hkv, nc, cs] → [1, Hkv, S, d]
             return _unit_inner(t.reshape(S, n_kv, d)).permute(1, 0, 2)[None]
 
+        off = 0 if site.offset is None else int(scalars[site.offset])
         res = flash_attention(q.permute(1, 0, 2)[None],
                               heads_first(kt.cols[site.k_col]),
-                              heads_first(vt.cols[site.v_col]),
-                              causal=True)[0].permute(1, 0, 2)
+                              heads_first(vt.cols[site.v_col]), causal=True,
+                              q_offset=off)[0].permute(1, 0, 2)
     else:
         n_seq = nq if site.kind == "batched" else 1
         S, n_kv = kt.key_sizes[-3], kt.key_sizes[-2]

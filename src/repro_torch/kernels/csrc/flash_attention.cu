@@ -9,8 +9,11 @@
 // Each tensor comes with its (b, h, t) strides and a unit inner stride, so
 // the executor's [T, H, D] and [S, Hkv, D] tables pass as views.  Query
 // head h reads key/value head h / (H / Hkv); with Hkv = H this is the TPU
-// kernel's signature.  The causal mask is top-left aligned (query t sees
-// keys s <= t), so T < S is legal: the prefill over a cache_len-deep cache.
+// kernel's signature.  The causal mask places query row t at position
+// t + q_off (it sees keys s <= t + q_off), so T < S is legal: at q_off = 0
+// the prefill over a cache_len-deep cache, at q_off = the cached prefix's
+// length the suffix prefill of the prefix cache (the graph's mask
+// tp <= t + :cache_position; the TPU kernel has only q_off = 0).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_kernel and
 // flash_attention).  There the grid is (B*H, T/bq, S/bk) with the KV tiles
@@ -18,13 +21,16 @@
 // VMEM scratch; it asserts T % bq == 0 and S % bk == 0.  Here a block loops
 // over the KV tiles itself with the state in registers; ragged T and S are
 // masked in the kernel, since prompts have any length, and KV tiles past
-// the block's last query row (causal) or past S are never loaded.
+// the block's last query position (causal) or past S are never loaded.
 //
 // Bound: the products take 4 * D flops per (query, live key) pair.  At a
 // 512-token prompt that is above the balance point of the units the kernel
 // uses (3xTF32 on the tensor cores: 495 / 3 = 165 TFLOP/s against 3.35
 // TB/s), so the bound is the tensor cores'; at 32- and 64-token prompts
 // the work is a few microseconds of one SM's, and latency sets the launch.
+// A suffix prefill over a long cached prefix (32 rows at q_off = 448) is
+// latency-bound too: 8 to 24 blocks, each streaming 15 or 16 K/V tiles in
+// sequence; splitting the KV range over blocks would fill the card.
 // Design:
 //
 // - Each warp owns 16 query rows of one head: the M of mma.sync
@@ -35,7 +41,9 @@
 //   that leaves a block's query tiles past T.  Blocks run the latest
 //   query tiles first, which hold the most causal work; where SMs run
 //   several blocks each (`balance`), each block takes two row groups, the
-//   x-th latest and the x-th earliest, so that blocks hold equal work.
+//   x-th latest and the x-th earliest, so that blocks hold equal work
+//   (row group i reads about q_off + (i + 1) * rows keys, so the two
+//   groups of a pair read the same sum at any q_off).
 // - K/V tiles of BK rows (32 in f32, 64 in bf16) are copied by 16-byte
 //   cp.async into a double buffer in shared memory (a scalar path in the
 //   same kernel takes views that are not 16-byte aligned), one tile in
@@ -67,6 +75,8 @@
 // - The softmax runs in log2 units (scores times log2(e), exp2).
 //
 // The dynamic shared memory attribute is set once per kernel and device.
+// A launch with a causal offset runs a second build of the kernel (kOffset
+// below).
 
 #include <atomic>
 #include <stdint.h>
@@ -212,11 +222,17 @@ constexpr size_t smem_bytes(int warps) {
          sizeof(T);
 }
 
-template <typename T, int D, int BK>
+// kOffset: the launch has a causal offset.  The kernel is built both ways
+// because a runtime offset in the causal bounds made ptxas leave the
+// dependent mma chains of Q K^T unfilled (NOPs between them), and every
+// K/V tile about 1.6x slower on an H100, cold prefills included; built
+// without it, an offset-0 launch runs the code it ran before the offset.
+template <typename T, int D, int BK, bool kOffset>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
-                       int Hkv, int T_, int S, int causal, int heads,
+                       int Hkv, int T_, int S, int causal, int q_offset,
+                       int heads,
                        int balance, int vec,
                        long long sqb, long long sqh, long long sqt,
                        long long skb, long long skh, long long sks,
@@ -224,6 +240,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        long long sob, long long soh, long long sot,
                        float scale) {
   using Tl = Tile<T, D>;
+  const int q_off = kOffset ? q_offset : 0;
   constexpr bool kF32 = Tl::kF32;
   constexpr int DK = Tl::DK, LDK = Tl::LDK, LDV = Tl::LDV;
   constexpr int EPC = Tl::EPC, CPR = Tl::CPR;
@@ -286,7 +303,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q0w = q0 + (warp / heads) * kWarpRows;
     const bool warp_live = q0w < T_;
     const int q_last = min(q0 + rows, T_) - 1;
-    const int kv_end = causal ? min(S, q_last + 1) : S;
+    const int kv_end = causal ? min(S, q_last + q_off + 1) : S;
     const int n_tiles = (kv_end + BK - 1) / BK;
 
     // Q's A fragments: rows r0 = q0w + gid and r0 + 8
@@ -346,7 +363,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<1>();  // tile it has landed
       __syncthreads();
       const int k0 = it * BK;
-      if (warp_live && (!causal || k0 <= q0w + kWarpRows - 1)) {
+      if (warp_live && (!causal || k0 <= q0w + kWarpRows - 1 + q_off)) {
         const T* ks = Ks + (it & 1) * BK * LDK;
         const T* vs = Vs + (it & 1) * BK * LDV;
 
@@ -393,7 +410,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int i = 0; i < 4; ++i) {
             const int key = k0 + 8 * j + 2 * tig + (i & 1);
             const int row = i < 2 ? r0 : r1;
-            const bool live = key < S && (!causal || key <= row);
+            const bool live = key < S && (!causal || key <= row + q_off);
             sacc[j][i] = live ? sacc[j][i] * scale2 : -INFINITY;
             mx[i >> 1] = fmaxf(mx[i >> 1], sacc[j][i]);
           }
@@ -514,13 +531,14 @@ cudaError_t allow_smem(Kernel kernel, size_t smem,
 template <typename T, int D, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int Hkv, int T_, int S, int causal,
-                   int warps, int heads, int balance, int vec,
+                   int q_off, int warps, int heads, int balance, int vec,
                    const long long* st, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D, BK>(warps);
-  auto kernel = flash_attention_kernel<T, D, BK>;
-  static std::atomic<unsigned long long> smem_set{0};
-  const cudaError_t err =
-      allow_smem(kernel, smem_bytes<T, D, BK>(kMaxWarps), smem_set);
+  auto kernel = q_off ? flash_attention_kernel<T, D, BK, true>
+                      : flash_attention_kernel<T, D, BK, false>;
+  static std::atomic<unsigned long long> smem_set[2]{};
+  const cudaError_t err = allow_smem(kernel, smem_bytes<T, D, BK>(kMaxWarps),
+                                     smem_set[q_off ? 1 : 0]);
   if (err != cudaSuccess) return err;
   const int rows = kWarpRows * warps / heads;
   const int nqb = (T_ + rows - 1) / rows;
@@ -528,31 +546,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, 32 * warps, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, T_, S, causal,
-      heads, balance, vec, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], scale);
+      q_off, heads, balance, vec, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], scale);
   return cudaGetLastError();
 }
 
 template <typename T, int BK>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int H, int Hkv, int T_, int S, int D, int causal,
-                     int warps, int heads, int balance, int vec,
+                     int q_off, int warps, int heads, int balance, int vec,
                      const long long* st, float scale, cudaStream_t s) {
   switch (D) {
     case 8: return launch<T, 8, BK>(q, k, v, o, B, H, Hkv, T_, S, causal,
-                                    warps, heads, balance, vec, st, scale, s);
+                                    q_off, warps, heads, balance, vec, st,
+                                    scale, s);
     case 16: return launch<T, 16, BK>(q, k, v, o, B, H, Hkv, T_, S, causal,
-                                      warps, heads, balance, vec, st, scale,
-                                      s);
+                                      q_off, warps, heads, balance, vec, st,
+                                      scale, s);
     case 32: return launch<T, 32, BK>(q, k, v, o, B, H, Hkv, T_, S, causal,
-                                      warps, heads, balance, vec, st, scale,
-                                      s);
+                                      q_off, warps, heads, balance, vec, st,
+                                      scale, s);
     case 64: return launch<T, 64, BK>(q, k, v, o, B, H, Hkv, T_, S, causal,
-                                      warps, heads, balance, vec, st, scale,
-                                      s);
+                                      q_off, warps, heads, balance, vec, st,
+                                      scale, s);
     case 128: return launch<T, 128, BK>(q, k, v, o, B, H, Hkv, T_, S, causal,
-                                        warps, heads, balance, vec, st, scale,
-                                        s);
+                                        q_off, warps, heads, balance, vec, st,
+                                        scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -563,10 +582,10 @@ constexpr int kBK = sizeof(T) == 4 ? 32 : 64;
 
 template <typename T>
 int run(const void* q, const void* k, const void* v, void* o, int B, int H,
-        int Hkv, int T_, int S, int D, int causal, int warps, int heads,
-        int balance, int bk, int vec, const long long* strides, float scale,
-        void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || B < 0 || T_ < 0 || S < 0 ||
+        int Hkv, int T_, int S, int D, int causal, int q_off, int warps,
+        int heads, int balance, int bk, int vec, const long long* strides,
+        float scale, void* stream) {
+  if (Hkv <= 0 || H % Hkv != 0 || B < 0 || T_ < 0 || S < 0 || q_off < 0 ||
       static_cast<long long>(B) * H > 65535 ||
       !(warps == 1 || warps == 2 || warps == 4) || heads < 1 ||
       warps % heads != 0 || (H / Hkv) % heads != 0 || bk != kBK<T>) {
@@ -574,8 +593,8 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
   }
   if (B == 0 || H == 0 || T_ == 0) return 0;
   return static_cast<int>(dispatch<T, kBK<T>>(
-      q, k, v, o, B, H, Hkv, T_, S, D, causal, warps, heads, balance, vec,
-      strides, scale, static_cast<cudaStream_t>(stream)));
+      q, k, v, o, B, H, Hkv, T_, S, D, causal, q_off, warps, heads, balance,
+      vec, strides, scale, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -584,7 +603,8 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
 // launch, 0 on success, or cudaErrorInvalidValue for a plan the kernel does
 // not take.  Pointers are device pointers; ``strides`` is a host array of
 // twelve element strides: (b, h, t) of q, k, v and o in that order; stream
-// is a cudaStream_t.  The plan: warps (1, 2, 4) of a block, `heads` of them
+// is a cudaStream_t.  q_off (>= 0): query row t sees keys s <= t + q_off
+// when causal.  The plan: warps (1, 2, 4) of a block, `heads` of them
 // on one KV head's query heads, balance: each block takes two groups of
 // query rows (the x-th latest and earliest), bk K/V rows a tile (32 f32, 64
 // bf16); vec:
@@ -592,19 +612,22 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int Hkv, int T, int S, int D, int causal,
-                                   int warps, int heads, int balance, int bk,
-                                   int vec, const long long* strides,
-                                   float scale, void* stream) {
-  return run<float>(q, k, v, o, B, H, Hkv, T, S, D, causal, warps, heads,
-                    balance, bk, vec, strides, scale, stream);
+                                   int q_off, int warps, int heads,
+                                   int balance, int bk, int vec,
+                                   const long long* strides, float scale,
+                                   void* stream) {
+  return run<float>(q, k, v, o, B, H, Hkv, T, S, D, causal, q_off, warps,
+                    heads, balance, bk, vec, strides, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int Hkv, int T, int S, int D, int causal,
-                                    int warps, int heads, int balance, int bk,
-                                    int vec, const long long* strides,
-                                    float scale, void* stream) {
-  return run<__nv_bfloat16>(q, k, v, o, B, H, Hkv, T, S, D, causal, warps,
-                            heads, balance, bk, vec, strides, scale, stream);
+                                    int q_off, int warps, int heads,
+                                    int balance, int bk, int vec,
+                                    const long long* strides, float scale,
+                                    void* stream) {
+  return run<__nv_bfloat16>(q, k, v, o, B, H, Hkv, T, S, D, causal, q_off,
+                            warps, heads, balance, bk, vec, strides, scale,
+                            stream);
 }

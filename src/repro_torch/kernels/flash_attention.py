@@ -19,12 +19,18 @@ the threads of one.  K/V tiles of 32 (f32) or 64 (bf16) rows arrive by
 ``cp.async`` into a double buffer; Q·Kᵀ and P·V run as ``mma.sync``: f32
 as 3×TF32 (each operand split into two TF32 halves, three products, so
 the result keeps about f32 accuracy), bf16 with f32 accumulation.  The
-causal mask is top-left aligned (query t sees keys s ≤ t), so T < S is
-legal; tiles above the diagonal are never loaded, and ragged T and S are
-masked in the kernel (the TPU version asserts T % bq = S % bk = 0).  K/V
-may have fewer heads than q (query head h reads KV head h // (H/Hkv)), and
-every operand is passed with its (b, h, t) strides, so permuted views need
-no copy.
+causal mask places query row t at position ``t + q_offset`` (it sees keys
+s ≤ t + q_offset): at 0 top-left aligned, so T < S is legal (a prefill
+over a cache_len-deep cache); a suffix prefill of the prefix cache passes
+the cached prefix's length, a host int like every runtime scalar of the
+port, so the launch needs no device scalar and no sync.  Tiles above the
+diagonal are never loaded, and ragged T and S are masked in the kernel
+(the TPU version asserts T % bq = S % bk = 0 and has no offset).  A
+launch with an offset runs a second build of the kernel
+(``csrc/flash_attention.cu``, ``kOffset``), so that cold prefills keep the
+code built without one.  K/V may have fewer heads than q (query head h
+reads KV head h // (H/Hkv)), and every operand is passed with its (b, h,
+t) strides, so permuted views need no copy.
 
 On a CPU tensor the wrapper runs the plain version (``ref.flash_attention``);
 on a CUDA tensor it launches the kernel or raises.
@@ -47,7 +53,7 @@ HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernel's compiled head widths
 _DTYPES = {torch.float32: "flash_attention_f32",
            torch.bfloat16: "flash_attention_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] * 12 + [_P, ctypes.c_float, _P]
+_ARGTYPES = [_P] * 4 + [_I] * 13 + [_P, ctypes.c_float, _P]
 
 WARP_ROWS = 16         # query rows of one warp: the mma tile's M
 MAX_WARPS = 4
@@ -96,7 +102,13 @@ def _plan(B: int, T: int, S: int, H: int, Hkv: int, d: int,
     grid would hold more blocks than the card's ``sms`` SMs, so that SMs
     run several blocks each, each block takes two row groups, the x-th
     latest and the x-th earliest, so that causal blocks hold equal work
-    and no SM gets two of the longest."""
+    and no SM gets two of the longest.
+
+    The plan does not depend on the causal offset of a suffix prefill:
+    row group i reads about ``q_offset + (i + 1)·rows`` keys, so a pair
+    of groups reads the same sum at every offset (the offset only adds
+    the same prefix to every group), and a large offset makes the groups
+    nearly equal, where pairing costs nothing."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention has no kernel for {dtype}")
     if d not in HEAD_DIMS:
@@ -162,17 +174,22 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Attention of q [B,H,T,d] over k/v [B,Hkv,S,d] → [B,H,T,d] in
-    ``q.dtype``, scale 1/√d, causal mask top-left aligned.  Operands may
+    ``q.dtype``, scale 1/√d; with ``causal`` query row t sees keys
+    s ≤ t + ``q_offset`` (0 ≤ q_offset, q_offset + T ≤ S).  Operands may
     have any (b, h, t) strides with a unit inner stride; the output has
     q's layout."""
     _check(q, k, v)
-    flash_attention.calls += 1
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal)
     B, H, T, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
+    q_offset = int(q_offset)
+    if q_offset < 0 or q_offset + T > S:
+        raise ValueError(f"query rows at positions [{q_offset}, "
+                         f"{q_offset + T}) lie outside the {S} keys")
+    flash_attention.calls += 1
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal, q_offset=q_offset)
     if d not in HEAD_DIMS or B * H > 65535:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS} and at most "
                          f"65535 (batch, head) pairs, got d={d}, B={B}, H={H}")
@@ -180,12 +197,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * H * T == 0:
         return out
     plan = _plan(B, T, S, H, Hkv, d, q.dtype, _build.sm_count(q.device))
-    _launch(q, k, v, out, causal, plan)
+    _launch(q, k, v, out, causal, q_offset, plan)
     flash_attention.launches += 1
     return out
 
 
-def _launch(q, k, v, out, causal: bool, plan: Plan) -> None:
+def _launch(q, k, v, out, causal: bool, q_offset: int, plan: Plan) -> None:
     """Run ``plan`` on the card, writing ``out``.  Counts nothing."""
     B, H, T, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -194,14 +211,15 @@ def _launch(q, k, v, out, causal: bool, plan: Plan) -> None:
     fn = getattr(_library(), _DTYPES[q.dtype])
     with _build.on_device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, H, Hkv, T, S, d, int(causal), plan.warps, plan.heads,
-                 int(plan.balance), plan.bk, int(_build.aligned16(k, v)),
+                 B, H, Hkv, T, S, d, int(causal), q_offset, plan.warps,
+                 plan.heads, int(plan.balance), plan.bk,
+                 int(_build.aligned16(k, v)),
                  strides, 1.0 / d ** 0.5,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err} (B={B}, H={H}, Hkv={Hkv}, T={T}, S={S}, "
-                           f"d={d}, {q.dtype}, {plan})")
+                           f"d={d}, q_offset={q_offset}, {q.dtype}, {plan})")
 
 
 flash_attention.calls = 0

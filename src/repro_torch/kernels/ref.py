@@ -23,13 +23,16 @@ def chunked_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: Optional[float] = None
-                    ) -> torch.Tensor:
-    """q [B,H,T,d], k/v [B,Hkv,S,d] → [B,H,T,d].  The causal mask is
-    top-left aligned (query t sees keys s ≤ t), so T < S is legal.  Key/value
-    heads are expanded to ``H`` with ``repeat_interleave(H // Hkv)`` (query
-    head h reads key head ``h // (H/Hkv)``); with ``Hkv == H`` this is the
-    JAX oracle's signature."""
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q [B,H,T,d], k/v [B,Hkv,S,d] → [B,H,T,d].  The causal mask places
+    query row t at position ``t + q_offset``: it sees keys s ≤ t + q_offset.
+    At ``q_offset = 0`` the mask is top-left aligned, so T < S is legal (a
+    prefill over a deeper cache); a suffix prefill passes the number of
+    cached prefix rows.  Key/value heads are expanded to ``H`` with
+    ``repeat_interleave(H // Hkv)`` (query head h reads key head
+    ``h // (H/Hkv)``); with ``Hkv == H`` and ``q_offset = 0`` this is the JAX
+    oracle's signature."""
     H, T, d = q.shape[1], q.shape[2], q.shape[3]
     Hkv, S = k.shape[1], k.shape[2]
     if Hkv != H:
@@ -38,7 +41,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     s = torch.einsum("bhtd,bhsd->bhts", q, k).float() * scale
     if causal:
-        mask = (torch.arange(T, device=q.device)[:, None]
+        mask = (torch.arange(T, device=q.device)[:, None] + q_offset
                 >= torch.arange(S, device=q.device)[None, :])
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)

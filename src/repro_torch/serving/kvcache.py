@@ -17,22 +17,32 @@ relational engine's decode reads its own cache tables
 (:class:`BatchedCacheTables` slots): the executor hands each to the same
 kernel as a pool of contiguous pages with an identity page table.
 
-The prefix cache (``CacheSegment``/``PrefixCache`` and the segment
-bindings of ``BatchedCacheTables``) is not ported yet: ROADMAP.md next
-slice N2.
+The prefix cache (:class:`PrefixCache`) interns the cache tables of
+completed prefills as immutable, refcounted segments
+(:class:`CacheSegment`) under a chained content hash of their token
+blocks; a hit binds a slot of :class:`BatchedCacheTables` to a segment,
+by a full copy or by a shared binding whose rows below the boundary are
+spliced into every gathered batch view.  Nothing writes a segment's tensors: the pipeline's cache
+append is out of place (``core/pipeline.py``), slot writes go to the
+pool, and splices go to freshly gathered copies.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.chunked import resolve_device
-from repro_torch.core.executor import DenseTable
+from repro_torch.core.executor import DenseTable, permute_table_keys
 from repro_torch.core.llama_graph import copy_cache_slot, empty_cache_tables
+
+# token-count histogram buckets for the cached-prefix-length distribution
+# (the registry's DEFAULT_BUCKETS are latency seconds — useless for tokens)
+CACHED_TOKEN_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0,
+                        256.0, 512.0, 1024.0, 2048.0, 4096.0)
 
 
 @dataclasses.dataclass
@@ -172,6 +182,213 @@ class PagedKVCache:
         return k, v
 
 
+@dataclasses.dataclass
+class CacheSegment:
+    """An immutable, refcounted KV segment: the cache tables of a completed
+    (single-sequence) prefill, valid for the token prefix ``tokens``.
+
+    The tables are the session environment's ``k_cache_L*``/``v_cache_L*``
+    relations, ``cache_len`` rows deep — rows ``[0, len(tokens))`` hold the
+    prefix's K/V, rows beyond are stale and never read (causal masking).
+    Nothing writes them: a sequence that extends past the shared boundary
+    appends through ``run_pipeline``, which clones a cache table before it
+    writes the new rows (copy-on-write on every append), and a shared
+    binding's splice writes into a freshly gathered batch copy — so
+    segments are bound with zero copies.
+    """
+
+    tokens: Tuple[int, ...]
+    tables: Dict[str, DenseTable]
+    nbytes: int
+    refcount: int = 0
+    last_use: int = 0
+
+    def __hash__(self):  # identity: segments are interned by the cache
+        return id(self)
+
+    def __eq__(self, other):
+        return self is other
+
+
+class PrefixCacheStats:
+    def __init__(self):
+        self.hits = 0
+        self.misses = 0
+        self.insertions = 0
+        self.evictions = 0
+        self.cached_tokens = 0  # total tokens served from cache
+
+
+class PrefixCache:
+    """Content-hash prefix index over KV segments (the relational analogue
+    of vLLM-style automatic prefix caching).
+
+    Prompts are hashed in ``block``-token chunks with a *chained* block
+    hash (``h_i = hash((h_{i-1}, block_i))``), so a digest at boundary
+    ``b`` commits to the entire prefix ``tokens[:b]``, not just the last
+    block.  ``lookup`` walks the query's block boundaries deepest-first
+    and returns the longest indexed prefix — verified token-exact against
+    the segment's stored tokens, so a (vanishingly unlikely) digest
+    collision can never splice wrong K/V rows into a sequence.
+
+    Segments are refcounted (share-mode bindings pin them) and evicted
+    LRU among ``refcount == 0`` segments when the store exceeds
+    ``budget_bytes`` (or ``max_segments``) — dead segments only, mirroring
+    the pager's rule that pinned working-set entries never evict.
+    """
+
+    def __init__(self, block: int = 16, budget_bytes: Optional[int] = None,
+                 max_segments: Optional[int] = 32, metrics=None):
+        if block < 1:
+            raise ValueError(f"block must be >= 1, got {block}")
+        self.block = int(block)
+        self.budget_bytes = budget_bytes
+        self.max_segments = max_segments
+        self.metrics = metrics
+        self.stats = PrefixCacheStats()
+        # chained digest -> list of (segment, boundary); a segment of
+        # length L is indexed at every block boundary b <= L
+        self._index: Dict[int, List[Tuple[CacheSegment, int]]] = {}
+        self._segments: List[CacheSegment] = []
+        self._tick = 0  # LRU clock (monotonic use counter)
+
+    # -- hashing ----------------------------------------------------------
+
+    def _boundaries(self, tokens) -> List[Tuple[int, int]]:
+        """(boundary, chained digest) at every full block of ``tokens``."""
+        out = []
+        h = 0
+        for i in range(0, len(tokens) - len(tokens) % self.block,
+                       self.block):
+            h = hash((h,) + tuple(tokens[i:i + self.block]))
+            out.append((i + self.block, h))
+        return out
+
+    # -- metrics ----------------------------------------------------------
+
+    def _count(self, outcome: str) -> None:
+        if self.metrics is not None:
+            self.metrics.counter(
+                f"serving_prefix_cache_{outcome}_total",
+                f"prefix cache {outcome}").inc()
+
+    def _export_gauges(self) -> None:
+        if self.metrics is not None:
+            self.metrics.gauge(
+                "serving_prefix_cache_segments",
+                "live KV segments in the prefix cache").set(
+                    len(self._segments))
+            self.metrics.gauge(
+                "serving_prefix_cache_resident_bytes",
+                "nominal bytes of live KV segments").set(
+                    self.resident_bytes)
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(s.nbytes for s in self._segments)
+
+    # -- lookup / insert / refcounts --------------------------------------
+
+    def lookup(self, tokens) -> Optional[Tuple[CacheSegment, int]]:
+        """Longest cached prefix of ``tokens``, or None.
+
+        The boundary is capped at ``len(tokens) - 1``: at least one prompt
+        token must remain for the suffix prefill, whose final-position
+        logits produce the sequence's first generated token.
+        """
+        tokens = list(tokens)
+        for boundary, digest in reversed(self._boundaries(tokens)):
+            if boundary >= len(tokens):
+                continue
+            for seg, b in self._index.get(digest, ()):
+                if b == boundary and tuple(seg.tokens[:b]) == \
+                        tuple(tokens[:b]):
+                    self._tick += 1
+                    seg.last_use = self._tick
+                    self.stats.hits += 1
+                    self.stats.cached_tokens += boundary
+                    self._count("hits")
+                    if self.metrics is not None:
+                        self.metrics.histogram(
+                            "serving_prefix_cached_tokens",
+                            "tokens served from the prefix cache per hit",
+                            buckets=CACHED_TOKEN_BUCKETS).observe(boundary)
+                    return seg, boundary
+        self.stats.misses += 1
+        self._count("misses")
+        return None
+
+    def insert(self, tokens, env, nbytes: Optional[int] = None
+               ) -> Optional[CacheSegment]:
+        """Intern ``env``'s cache tables as a segment covering ``tokens``.
+
+        Skipped when an already-indexed segment covers the deepest block
+        boundary of ``tokens`` (inserting would add index weight without
+        extending coverage).  The tables are shared by reference — O(1),
+        no device copies (see :class:`CacheSegment` on why that is safe).
+        """
+        bounds = self._boundaries(tokens)
+        if not bounds:
+            return None
+        deepest, digest = bounds[-1]
+        for seg, b in self._index.get(digest, ()):
+            if b == deepest and tuple(seg.tokens[:b]) == \
+                    tuple(tokens[:b]):
+                return None  # coverage already indexed
+        tables = {nm: t for nm, t in env.items()
+                  if nm.startswith(("k_cache_L", "v_cache_L"))}
+        if nbytes is None:
+            nbytes = sum(t.cols[c].numel() * t.cols[c].element_size()
+                         for t in tables.values() for c in t.cols)
+        self._tick += 1
+        seg = CacheSegment(tokens=tuple(int(t) for t in tokens),
+                           tables=tables, nbytes=int(nbytes),
+                           last_use=self._tick)
+        self._segments.append(seg)
+        for boundary, digest in bounds:
+            self._index.setdefault(digest, []).append((seg, boundary))
+        self.stats.insertions += 1
+        self._evict()
+        self._export_gauges()
+        return seg
+
+    def acquire(self, seg: CacheSegment) -> None:
+        seg.refcount += 1
+
+    def release(self, seg: CacheSegment) -> None:
+        assert seg.refcount > 0, "refcount underflow"
+        seg.refcount -= 1
+        # a just-released segment may unblock a pending eviction
+        self._evict()
+        self._export_gauges()
+
+    # -- eviction ---------------------------------------------------------
+
+    def _over_budget(self) -> bool:
+        if self.max_segments is not None and \
+                len(self._segments) > self.max_segments:
+            return True
+        return (self.budget_bytes is not None and
+                self.resident_bytes > self.budget_bytes)
+
+    def _evict(self) -> None:
+        """Drop LRU dead (refcount-0) segments until within budget.  Live
+        segments are pinned by their bindings and never evicted — the
+        store may transiently exceed budget while every segment is live,
+        exactly like pinned pages in the weight pager."""
+        while self._over_budget():
+            dead = [s for s in self._segments if s.refcount == 0]
+            if not dead:
+                return
+            victim = min(dead, key=lambda s: s.last_use)
+            self._segments.remove(victim)
+            for entries in self._index.values():
+                entries[:] = [(s, b) for s, b in entries if s is not victim]
+            self.stats.evictions += 1
+            self._count("evictions")
+        self._export_gauges()
+
+
 class BatchedCacheTables:
     """Seq-indexed views over the relational KV-cache *tables* for batched
     decode (the paper's §3.4 cache relations with a leading ``seq`` key).
@@ -205,6 +422,14 @@ class BatchedCacheTables:
         # fires even when a freed slot is reused by a NEW sequence — same
         # slot id, same batch tuple, different contents.
         self.generations = np.zeros(max_seqs, np.int64)
+        # share-mode prefix bindings: seq_id -> (CacheSegment, boundary).
+        # A bound slot's pool rows are authoritative only for positions
+        # >= boundary; gather_views splices the segment's rows below it.
+        # The slot never writes below the boundary (decode appends land at
+        # the sequence's position, >= its full prompt length > boundary),
+        # and the splice writes into the gathered copy, so the shared
+        # segment tensors are never touched.
+        self.bindings: Dict[int, Tuple[CacheSegment, int]] = {}
 
     def _index(self, seq_ids) -> torch.Tensor:
         return torch.from_numpy(
@@ -219,32 +444,102 @@ class BatchedCacheTables:
         """Copy a single-sequence session's cache tables into a slot —
         the WHOLE slot is overwritten, so slot reuse never depends on
         :meth:`free` having run.  Key orders are aligned by name."""
+        self.release_binding(seq_id)
         copy_cache_slot(self.tables, seq_id, env)
         self.positions[seq_id] = length
         self.generations[seq_id] += 1
+
+    def write_suffix(self, seq_id: int, env, length: int, boundary: int,
+                     pos_key: str = "tp") -> None:
+        """Share-mode slot fill: copy only rows ``[boundary, cache_len)``
+        of a (suffix-prefilled) session's cache tables into the slot, in
+        place — the relational ``INSERT ... SELECT ... WHERE tp >=
+        boundary``.  Rows below the boundary stay whatever the slot last
+        held; they are shadowed by the bound segment at gather time
+        (:meth:`gather_views`), never read directly."""
+        for nm, dst in self.tables.items():
+            src = permute_table_keys(env[nm], dst.key_names[1:])
+            cn = next(iter(dst.cols))
+            pax = dst.key_names[1:].index(pos_key)
+            slot = dst.cols[cn][seq_id].movedim(pax, 0)
+            slot[boundary:] = src.cols[cn].movedim(pax, 0)[boundary:]
+        self.positions[seq_id] = length
+        self.generations[seq_id] += 1
+
+    def bind_segment(self, seq_id: int, segment: CacheSegment,
+                     boundary: int) -> None:
+        """Record a share-mode binding (caller holds the segment's ref)."""
+        self.bindings[seq_id] = (segment, boundary)
+        self.generations[seq_id] += 1
+
+    def release_binding(self, seq_id: int) -> Optional[CacheSegment]:
+        """Drop a slot's binding, returning the segment (for the caller to
+        unref) or None.  Idempotent; called on free AND on slot refill so
+        reuse never inherits a stale splice."""
+        bound = self.bindings.pop(seq_id, None)
+        if bound is None:
+            return None
+        self.generations[seq_id] += 1
+        return bound[0]
 
     def free(self, seq_id: int) -> None:
         """Release a slot: reset its position.  Stale rows are never read
         (gathers cover active slots only, reads beyond a sequence's
         position are causally masked, and ``write_prefill`` overwrites the
-        whole slot on reuse), so the device tensors are left as they are."""
+        whole slot on reuse), so the device tensors are left as they are.
+
+        Callers owning prefix-cache refs (``BatchedDecoder.free``) must
+        release the slot's binding through their own path first; any
+        binding still present here is dropped without unref."""
+        self.release_binding(seq_id)
         self.positions[seq_id] = 0
         self.generations[seq_id] += 1
 
-    def gather_views(self, seq_ids):
+    def gather_views(self, seq_ids, pos_key: str = "tp"):
         """Batch views: {table: DenseTable keyed (seq ∈ [B), …)}, gathered
         copies of the slots.  Duplicate ids are allowed (batch-size-bucket
         padding): the padded rows compute redundantly and scatter back
-        identical values."""
+        identical values.
+
+        Slots bound to a shared prefix segment (:meth:`bind_segment`) are
+        composed here: the segment's rows ``[0, boundary)`` are written
+        over the gathered slot at the position axis — the relational
+        ``seq-view UNION segment rows re-keyed to this seq`` — into the
+        freshly gathered batch copy, never into the pool or the segment.
+        The decoder's generation-keyed view cache makes it a
+        once-per-batch-change cost, not a per-tick one."""
         ids = self._index(seq_ids)
+        bound = [(b, int(s)) for b, s in enumerate(np.asarray(
+            seq_ids, np.int64).reshape(-1)) if int(s) in self.bindings]
         out = {}
         for name, pool in self.tables.items():
             cn = next(iter(pool.cols))
+            arr = pool.cols[cn][ids]  # advanced indexing: a copy
+            pax = pool.key_names.index(pos_key) - 1  # axis within a slot
+            for b, sid in bound:
+                seg, boundary = self.bindings[sid]
+                src = permute_table_keys(seg.tables[name],
+                                         pool.key_names[1:])
+                arr[b].movedim(pax, 0)[:boundary] = \
+                    src.cols[cn].movedim(pax, 0)[:boundary]
             out[name] = DenseTable(
                 keys=(("seq", len(ids)),) + pool.keys[1:],
-                cols={cn: pool.cols[cn][ids]},
+                cols={cn: arr},
                 col_types=dict(pool.col_types))
         return out
+
+    def scatter(self, seq_ids, env) -> None:
+        """Write updated batch views back into their slots (full tables).
+
+        Reference/bulk path (tests, state import) — the decode hot path
+        uses :meth:`scatter_rows`, which writes back only the one row per
+        sequence a tick appends."""
+        ids = self._index(seq_ids)
+        for name, pool in self.tables.items():
+            cn = next(iter(pool.cols))
+            pool.cols[cn][ids] = env[name].cols[cn].to(pool.cols[cn].dtype)
+        # external slot mutation: cached views go stale
+        self.generations[np.asarray(seq_ids, np.int64).reshape(-1)] += 1
 
     def scatter_rows(self, seq_ids, env, positions,
                      pos_key: str = "tp") -> None:

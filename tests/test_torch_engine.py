@@ -123,7 +123,7 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
     dict(row2col="auto"), dict(cache_layout="head_major"),
     dict(chunk_size="auto"), dict(cost_params=object()),
     dict(precision="int8"), dict(residency="paged"),
-    dict(accuracy_budget=0.1), dict(metrics=object()),
+    dict(accuracy_budget=0.1), dict(table_precisions={"lm_head": "int8"}),
     dict(tracer=object()), dict(shards=2)])
 def test_unported_knobs_raise(knob):
     kwargs = dict(chunk_size=8, max_len=16, device="cpu")
@@ -132,11 +132,31 @@ def test_unported_knobs_raise(knob):
         RelationalEngine(T_SPEC, PARAMS, **kwargs)
 
 
-def test_prefix_cache_raises():
-    te = RelationalEngine(T_SPEC, PARAMS, chunk_size=8, max_len=16,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="N2"):
-        te.batched_decoder(2, prefix_block=16)
+def test_prefix_block_16_serves():
+    """The reference's default decoder, ``prefix_block=16``: a second
+    prompt sharing a 16-token block with the first admits as a hit at
+    boundary 16, and both decode the tokens of the JAX package's decoder."""
+    je, te = _engines(max_len=40)
+    jd, td = je.batched_decoder(2), te.batched_decoder(2)
+    assert td.prefix_cache.block == 16 and td.prefix_bind == "auto"
+    shared = list(range(3, 19))
+    last = []
+    for s, (p, cached) in enumerate(((shared + [1, 2], 0),
+                                     (shared + [7, 8, 9], 16))):
+        want = jd.prefill_ex(p, s)
+        assert td.prefill_ex(p, s) == want and want[1] == cached
+        last.append(want[0])
+    assert td.prefix_cache.stats.hits == 1
+    for _ in range(3):
+        want = jd.decode([0, 1], last)
+        assert td.decode([0, 1], last) == want
+        last = want
+
+
+def test_tracer_raises_naming_n6():
+    with pytest.raises(NotImplementedError, match="N6"):
+        RelationalEngine(T_SPEC, PARAMS, chunk_size=8, max_len=16,
+                         device="cpu", tracer=object())
 
 
 def test_init_llama_tensors_shapes_and_scales():

@@ -270,15 +270,18 @@ _PIPES = {}
 
 
 def _pipes(kind, cs, T=0, batch=0, max_len=MAX_LEN):
-    """(jax pipeline, torch pipeline) for one graph, compiled once."""
+    """(jax pipeline, torch pipeline) for one graph, compiled once.  Kinds:
+    "prefill", "suffix" (the prefix cache's suffix prefill), "decode",
+    "batched"."""
     key = (kind, cs, T, batch, max_len)
     if key not in _PIPES:
         out = []
         for lg, spec, infer, pre, opm, post in (
                 (jlg, J_SPEC, j_infer, j_pre, j_op_map, j_post),
                 (tlg, T_SPEC, t_infer, t_pre, t_op_map, t_post)):
-            g = (lg.build_prefill_graph(spec, T, cache_len=max_len)
-                 if kind == "prefill" else
+            g = (lg.build_prefill_graph(spec, T, cache_len=max_len,
+                                        suffix=kind == "suffix")
+                 if kind in ("prefill", "suffix") else
                  lg.build_decode_graph(spec, cache_len=max_len, batch=batch))
             infer(g)
             pre(g)
@@ -489,3 +492,69 @@ def test_token_id_past_the_vocabulary_raises():
         np.arange(3), T_SPEC.head_dim, T_SPEC.rope_theta, device=CPU)
     with pytest.raises(IndexError, match="token id"):
         t_run(tp, tenv, scalars={"cache_position": 0})
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache's suffix prefill
+# ---------------------------------------------------------------------------
+
+
+def _plan_nodes(pipe):
+    """Every node of every step's plan, once."""
+    seen, stack = set(), [s.rel.plan for s in pipe.steps]
+    while stack:
+        node = stack.pop()
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        yield node
+        stack += [getattr(node, a) for a in ("input", "left", "right")
+                  if getattr(node, a, None) is not None]
+
+
+@pytest.mark.parametrize("T,kind", [(1, "decode"), (2, "prefill"),
+                                    (5, "prefill")])
+def test_suffix_attention_sites_match_the_offset_mask(T, kind):
+    """The suffix mask ``tp <= t + :cache_position`` matches K3's
+    "prefill" with the offset's name for T > 1, and K2's "decode" (the
+    decode step's exact mask) for one token."""
+    _, tp = _pipes("suffix", 8, T=T)
+    sites = [tex._attention_site(n) for n in _plan_nodes(tp)
+             if isinstance(n, tra.GroupAgg)]
+    sites = [s for s in sites if s is not None]
+    assert len(sites) == N_LAYERS
+    assert {(s.kind, s.offset) for s in sites} == {(kind, "cache_position")}
+    _, cold = _pipes("prefill", 8, T=T)
+    assert {(s.kind, s.offset) for s in (
+        tex._attention_site(n) for n in _plan_nodes(cold)
+        if isinstance(n, tra.GroupAgg)) if s is not None} == {
+            ("prefill", None)}
+
+
+@pytest.mark.parametrize("cs", [4, 8])
+@pytest.mark.parametrize("T", [1, 3, 6])
+def test_suffix_prefill_pipeline_matches_jax(cs, T):
+    """An 8-token prefix prefilled, then T suffix tokens at positions
+    8 .. 8 + T - 1 over its caches (K3 with q_offset 8 for T > 1, K2 at
+    length 9 for T = 1); logits and caches within 1e-5 of the JAX
+    executor's relational operators, the prefix caches untouched."""
+    _, jenv, _, tenv = _prefill_envs(cs, [3, 17, 42, 5, 9, 60, 1, 2])
+    jp, tp = _pipes("suffix", cs, T=T)
+    suffix = [int(t) for t in np.random.default_rng(T).integers(0, 64, T)]
+    jenv["token_ids"] = jlg.token_table(np.asarray(suffix, np.int32))
+    jenv["freq_each_token"] = jlg.rope_freq_table(
+        np.arange(8, 8 + T), J_SPEC.head_dim, J_SPEC.rope_theta)
+    tenv["token_ids"] = tlg.token_table(np.asarray(suffix), device=CPU)
+    tenv["freq_each_token"] = tlg.rope_freq_table(
+        np.arange(8, 8 + T), T_SPEC.head_dim, T_SPEC.rope_theta, device=CPU)
+    snap = _snapshot(tenv)
+    k1, k2, k3 = _calls()
+    jo, jenv = j_run(jp, jenv, scalars={"cache_position": 8})
+    to, tenv2 = t_run(tp, tenv, scalars={"cache_position": 8})
+    on_k3 = T > 1
+    assert _calls() == (k1 + PER_CALL, k2 + N_LAYERS * (not on_k3),
+                        k3 + N_LAYERS * on_k3)
+    assert _unchanged(tenv, snap), "run_pipeline wrote the caller's env"
+    _close(jo["logits"], to["logits"])
+    for name in ("k_cache_L0", "v_cache_L1"):
+        _close(jenv[name], tenv2[name])

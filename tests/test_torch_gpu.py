@@ -382,3 +382,114 @@ def test_attention_kernels_take_misaligned_views(cuda, dtype):
     torch.testing.assert_close(flash_attention(qf, k, v).float(),
                                ref.flash_attention(qf, k, v).float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache's suffix prefill: K3 with a causal offset
+# ---------------------------------------------------------------------------
+
+# (T, q_offset) over a 512-row cache: offsets on and around the 32-row
+# K/V tile's edges, the chatbot prefix (448) and the cache's last rows
+SUFFIX_MAIN = ([(T, off) for T in (2, 16, 17, 32, 48)
+                for off in (0, 1, 15, 31, 33, 448)]
+               + [(T, 512 - T) for T in (2, 17, 48, 64)])
+
+
+@pytest.mark.parametrize("T,q_offset", SUFFIX_MAIN)
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_flash_attention_with_query_offset(cuda, T, q_offset, dtype):
+    """Llama-3-8B widths (32 query heads over 8 KV heads, d 128) as the
+    executor passes a suffix prefill: query row t at position
+    q_offset + t sees keys s <= q_offset + t."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(T * 1000 + q_offset)
+    q = _randn(gen, (T, 32, 128), cuda, dt).permute(1, 0, 2)[None]
+    k = _randn(gen, (512, 8, 128), cuda, dt).permute(1, 0, 2)[None]
+    v = _randn(gen, (512, 8, 128), cuda, dt).permute(1, 0, 2)[None]
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention(q, k, v, q_offset=q_offset).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("T,S,q_offset", [(5, 9, 4), (3, 40, 33),
+                                          (17, 64, 1), (40, 100, 60)])
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_flash_attention_offset_ragged_shapes(cuda, T, S, q_offset, dtype):
+    """Ragged T and S, a head dim of 64, two query heads per KV head."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(T + S + q_offset)
+    q = _randn(gen, (2, T, 4, 64), cuda, dt).permute(0, 2, 1, 3)
+    k = _randn(gen, (2, S, 2, 64), cuda, dt).permute(0, 2, 1, 3)
+    v = _randn(gen, (2, S, 2, 64), cuda, dt).permute(0, 2, 1, 3)
+    got = flash_attention(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), ref.flash_attention(q, k, v, q_offset=q_offset).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _prefix_engines(cuda):
+    spec = LlamaSpec(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv=2,
+                     d_ff=64, rope_theta=10000.0)
+    params = init_llama_params(spec, seed=0)
+    return spec, {d: RelationalEngine(spec, params, chunk_size=8, max_len=48,
+                                      device=d) for d in ("cpu", cuda)}
+
+
+@pytest.mark.parametrize("tail", [1, 5, 20])
+def test_suffix_session_on_the_card_matches_the_cpu(cuda, tail):
+    """A 16-token prefix session, then a suffix session of ``tail`` tokens
+    over its caches: logits on the card within 1e-4 of the port on the
+    CPU, K3 launched with the offset (K2 for one token)."""
+    spec, engines = _prefix_engines(cuda)
+    rng = np.random.default_rng(tail)
+    prompt = [int(t) for t in rng.integers(0, 64, 16 + tail)]
+    logits = {}
+    for d, eng in engines.items():
+        tables = {k: v for k, v in eng.start_session(prompt[:16])[
+            "env"].items() if k.startswith(("k_cache", "v_cache"))}
+        k2, k3 = paged_attention.launches, flash_attention.launches
+        logits[d] = eng.start_suffix_session(prompt, 16, tables)["logits"]
+        if d == cuda:
+            torch.cuda.synchronize()
+            assert (paged_attention.launches - k2,
+                    flash_attention.launches - k3) == (
+                        (spec.n_layers, 0) if tail == 1
+                        else (0, spec.n_layers))
+    np.testing.assert_allclose(logits[cuda], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["copy", "share"])
+def test_segments_stay_bit_unchanged_on_the_card(cuda, mode):
+    """Sequences that share a segment prefill, decode, free and re-admit
+    on the card; every segment tensor keeps its bits, and the tokens are
+    those of a cold decoder."""
+    _, engines = _prefix_engines(cuda)
+    eng = engines[cuda]
+    hot = eng.batched_decoder(3, prefix_block=4, prefix_bind=mode)
+    cold = eng.batched_decoder(3, prefix_block=0)
+    prefix = list(range(1, 13))
+    hot.prefill_ex(prefix + [0], 0)
+    snap = [(t.cols[c], t.cols[c].clone()) for seg in
+            hot.prefix_cache._segments for t in seg.tables.values()
+            for c in t.cols]
+    for round_ in range(2):
+        prompts = {1: prefix + [2, round_], 2: prefix + [3, 4, 5, round_]}
+        last_h = {s: hot.prefill_ex(p, s) for s, p in prompts.items()}
+        assert all(c == 12 for _, c in last_h.values())
+        last_h = [t for t, _ in last_h.values()]
+        last_c = [cold.prefill(p, s) for s, p in prompts.items()]
+        assert last_h == last_c
+        for _ in range(4):
+            last_h = hot.decode([1, 2], last_h)
+            last_c = cold.decode([1, 2], last_c)
+            assert last_h == last_c
+        hot.free(1)
+        hot.free(2)
+        torch.cuda.synchronize()
+        assert all(torch.equal(t, c) for t, c in snap)

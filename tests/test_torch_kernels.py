@@ -184,6 +184,57 @@ def test_plain_flash_attention_groups_kv_heads(T, S):
                                atol=2e-5)
 
 
+def _masked_softmax_attention(q, k, v, q_offset):
+    """Attention written out one query row at a time: row t of head h
+    softmaxes its scores over keys 0 .. t + q_offset of KV head h // g."""
+    B, H, T, d = q.shape
+    g = H // k.shape[1]
+    out = np.zeros_like(q)
+    for b in range(B):
+        for h in range(H):
+            for t in range(T):
+                n = t + q_offset + 1
+                s = k[b, h // g, :n] @ q[b, h, t] / np.sqrt(d)
+                p = np.exp(s - s.max())
+                out[b, h, t] = (p / p.sum()) @ v[b, h // g, :n]
+    return out
+
+
+@pytest.mark.parametrize("T,S,q_offset", [
+    (3, 40, 1), (4, 40, 15), (5, 40, 31), (7, 40, 33), (6, 40, 34),
+    (17, 48, 16), (1, 9, 8)])
+def test_plain_flash_attention_with_query_offset(T, S, q_offset):
+    """The suffix prefill's mask: query row t sees keys s <= t + q_offset
+    (offsets inside and on the edges of a 32-row K/V tile, and the last
+    rows of the cache, q_offset = S - T), Hkv < H."""
+    H, Hkv, d = 4, 2, 16
+    q, k, v = _flash_inputs((2, H, T, d), (2, Hkv, S, d), seed=T + q_offset)
+    calls = flash_attention.calls
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          q_offset=q_offset)
+    assert flash_attention.calls == calls + 1
+    np.testing.assert_allclose(got.numpy(),
+                               _masked_softmax_attention(q, k, v, q_offset),
+                               rtol=2e-5, atol=2e-5)
+    # the plain version at offset 0 is the top-left aligned mask
+    q0 = torch.from_numpy(q)
+    kv = [torch.from_numpy(a) for a in (k, v)]
+    np.testing.assert_allclose(
+        ref.flash_attention(q0, *kv, q_offset=0).numpy(),
+        _masked_softmax_attention(q, k, v, 0), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("q_offset", [-1, 4])
+def test_flash_attention_rejects_rows_outside_the_keys(q_offset):
+    """0 <= q_offset and q_offset + T <= S (here T = 6, S = 9)."""
+    args = [torch.from_numpy(a) for a in
+            _flash_inputs((1, 4, 6, 8), (1, 2, 9, 8), 0)]
+    calls = flash_attention.calls
+    with pytest.raises(ValueError, match="outside"):
+        flash_attention(*args, q_offset=q_offset)
+    assert flash_attention.calls == calls
+
+
 @pytest.mark.parametrize("kernel", ["paged", "flash"])
 def test_attention_cpu_tensors_take_the_plain_version(kernel):
     if kernel == "paged":

@@ -322,6 +322,28 @@ def test_k3_balance_follows_the_sm_count(T, sms):
     assert p.blocks == 8 * (_cdiv(nqb, 2) if p.balance else nqb)
 
 
+@pytest.mark.parametrize("q_offset", [0, 1, 15, 31, 33, 448, 512])
+def test_k3_pairing_evens_causal_work_at_every_offset(q_offset):
+    """A suffix prefill's rows sit at positions q_offset + t.  By the
+    kernel's causal end (``kv_end = min(S, q_last + q_offset + 1)``), row
+    group i reads about q_offset + (i + 1)·rows keys, so each balanced
+    block's two groups read the same number of K/V tiles, within the one
+    tile that rounding gives, at every offset: the plan need not depend
+    on it."""
+    T, S = 512, 1024
+    p = K3._plan(1, T, S, 32, 8, 128, torch.float32, SMS)
+    assert p.balance
+    nqb = _cdiv(T, p.rows)
+
+    def tiles(qb):
+        q_last = min((qb + 1) * p.rows, T) - 1
+        return _cdiv(min(S, q_last + q_offset + 1), p.bk)
+
+    work = [tiles(nqb - 1 - x) + (tiles(x) if 2 * x + 1 < nqb else 0)
+            for x in range(_cdiv(nqb, 2))]
+    assert max(work) - min(work) <= 1, work
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_k3_head_dims_fit_shared_memory(d, dtype):
