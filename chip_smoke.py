@@ -6,21 +6,28 @@
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit's ``nvcc``.  It builds every hand-written kernel from the sources in
 this checkout, holds each against its plain PyTorch version on the card
-(K3 also with the suffix prefill's causal offset), runs the engine at
-Llama-3-8B width on the card against the same engine on the CPU (depth 2,
-a single sequence, a batched decoder and a suffix session over a cached
-prefix), then serves at full width and depth through ``ContinuousBatcher``
-→ ``BatchedDecoder`` → ``RelationalEngine``: a few cold requests (phase 5),
-then chatbot traffic over a 448-token shared prefix through the prefix
-cache in both bind modes with a metrics registry attached (phase 6).  Each
-serving run checks that every GEMM went through K1 ``chunked_matmul``,
-every decode attention (and one-token suffix) through K2
-``paged_attention`` and every prefill attention (cold, or a suffix over a
-cached prefix) through K3 ``flash_attention``; phase 6 also checks the
-hits, the metrics and the tokens against a decoder without the cache.
-Any failure exits non-zero.  The last line is ``{"ok": true, "device":
-{...}}``; the line before it lists the kernels with their launches,
-errors and times (the per-shape times are printed in phase 3).
+(K1 also in the planner's column layouts, K2 and K3 also over head_major
+and pos_major caches, K3 also with the suffix prefill's causal offset),
+runs the engine at Llama-3-8B width on the card against the same engine
+on the CPU (depth 2: the reference's planned defaults with a batched
+decoder and a suffix session over a cached prefix, the column layouts
+under every forced cache layout, int8 and nf4 payloads through the
+accuracy gate, the planner's chunk size, and the unplanned engine), then
+serves at full width and depth under the reference's defaults
+(``row2col="auto"``, ``cache_layout="auto"``) through
+``ContinuousBatcher`` → ``BatchedDecoder`` → ``RelationalEngine``: a few
+cold requests (phase 5), then chatbot traffic over a 448-token shared
+prefix through the prefix cache in both bind modes with a metrics
+registry attached (phase 6).  Each serving run checks that every GEMM went
+through K1 ``chunked_matmul``, every decode attention (and one-token
+suffix) through K2 ``paged_attention`` and every prefill attention (cold,
+or a suffix over a cached prefix) through K3 ``flash_attention``; phase 6
+also checks the hits, the metrics and the tokens against a decoder
+without the cache.  Any failure exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``; the line before it lists the kernels
+with their launches, errors and times (the per-shape times are printed in
+phase 3), and rows for K1's column layouts and K2/K3 over the planned
+cache layout.
 """
 
 from __future__ import annotations
@@ -93,6 +100,20 @@ PAGED_SWEEP = [[5, 17, 32], [1, 1, 1], [32, 8, 24]]
 FLASH_SWEEP = [(32, 32, 16, True), (64, 64, 32, True), (32, 64, 16, False),
                (128, 128, 64, True)]
 KERNELS = ("chunked_matmul", "paged_attention", "flash_attention")
+# the TPU kernel each replaces (the function reaching pl.pallas_call)
+REPLACES = {"chunked_matmul": "src/repro/kernels/chunked_matmul.py:42",
+            "paged_attention": "src/repro/kernels/paged_attention.py:80",
+            "flash_attention": "src/repro/kernels/flash_attention.py:72"}
+# K1's column-layout sites at Llama-3-8B widths, (H, K, Nh): Q as
+# COL_CHUNK_HEADS, one [4096, 128] block a head; o, W1/W3 and lm_head as
+# COL_CHUNK; and their launches in one decode step or prefill (the
+# planner's decisions at these widths: Q, o, W1, W3 and lm_head go to the
+# column layouts, K, V and W2 stay row-chunked)
+COL_SITES = {"Q (COLH)": (32, 4096, 128), "o": (1, 4096, 4096),
+             "W1/W3": (1, 4096, 14336), "lm_head": (1, 4096, 128256)}
+COL_COUNTS = {"Q (COLH)": N_LAYERS, "o": N_LAYERS, "W1/W3": 2 * N_LAYERS,
+              "lm_head": 1}
+COL_M = (1, 4, 64)
 
 
 def log(msg: str = "") -> None:
@@ -431,6 +452,196 @@ def phase_attention_kernels(flush):
     return rows, step, err
 
 
+def phase_col_kernels(flush):
+    """K1 in the planner's column layouts (ROW2COL) at Llama-3-8B's column
+    sites: Q as COL_CHUNK_HEADS [32 x (4096 -> 128)], o, W1/W3 and lm_head
+    as COL_CHUNK, at decode M = 1, 4 and prefill M = 64."""
+    from repro_torch.kernels import chunked_matmul, ref
+    from repro_torch.kernels._build import sm_count
+    K1 = importlib.import_module("repro_torch.kernels.chunked_matmul")
+    log("== phase 3: K1 chunked_matmul in the column layouts against its "
+        "plain version")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    max_err, rows = 0.0, []
+    for label, (H, K, Nh) in COL_SITES.items():
+        w = torch.randn(H, K, Nh, generator=gen, device=dev).mul_(K ** -0.5)
+        for m in COL_M:
+            x = torch.randn(m, K, generator=gen, device=dev)
+            got = chunked_matmul(x, w, layout="col")
+            want = ref.chunked_matmul(x, w, "col")
+            again = chunked_matmul(x, w, layout="col")
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            assert torch.equal(got, again), f"{label} M={m}: not repeatable"
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            plan = K1._plan_col(m, H, Nh, K, x.dtype, K1._aligned_col(x, w),
+                                sm_count(dev))
+            n = H * Nh
+            bound, by = _bound(4 * (m * K + n * K + m * n), 2 * m * n * K)
+            row = {
+                "site": label, "M": m, "H": H, "K": K, "Nh": Nh,
+                "kernel_ms": time_ms(
+                    lambda: chunked_matmul(x, w, layout="col"), flush),
+                "plain_ms": time_ms(
+                    lambda: ref.chunked_matmul(x, w, "col"), flush),
+                "library_ms": time_ms(lambda: torch.matmul(x, w), flush),
+                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                "plan": f"{plan.regime} tile {plan.tile} splits "
+                        f"{plan.splits} ({plan.blocks} blocks)"}
+            rows.append(row)
+            log(f"  {label:9s} M={m:3d} H={H:2d} K={K} Nh={Nh:6d}  kernel "
+                f"{row['kernel_ms']:.4f} ms  plain {row['plain_ms']:.4f} ms "
+                f" library {row['library_ms']:.4f} ms  bound {bound:.4f} ms "
+                f"({by})  max|err| {err:.2e}  {row['plan']}")
+        del w
+    steps = {}
+    for m in COL_M:
+        what = "prefill" if m == PREFILL_M else "decode step"
+        step = {key: sum(r[key] * COL_COUNTS[r["site"]] for r in rows
+                         if r["M"] == m)
+                for key in ("kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms")}
+        step["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                           for r in rows if r["M"] == m)
+                            else "operations")
+        steps[m] = step
+        log(f"one {what}'s {sum(COL_COUNTS.values())} column-layout GEMMs "
+            f"at M={m}: kernel {step['kernel_ms']:.3f} ms, plain "
+            f"{step['plain_ms']:.3f} ms, library {step['library_ms']:.3f} ms,"
+            f" bound {step['bound_ms']:.3f} ms ({step['bound_by']})")
+    return steps, max_err
+
+
+def phase_quant_k1(flush):
+    """What a quantised table costs K1 today: the executor builds the f32
+    right input from the codes (the dequant projection, ``qchunk * scale``
+    or ``nf4_dequant(qchunk) * scale``) on every call, then runs K1 on it.
+    Timed at W1's row table (14336 x 4096, chunk 64) at M = 1 against K1
+    on the resident f32 table."""
+    from repro_torch.kernels import chunked_matmul
+    from repro_torch.quant.codecs import CODECS
+    log("== phase 3: K1 over a quantised table (dequantise, then K1)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, k, cs = 14336, 4096, 64
+    w = torch.randn(n, k // cs, cs, generator=gen, device=dev) * k ** -0.5
+    x = torch.randn(1, k, generator=gen, device=dev)
+    f32 = time_ms(lambda: chunked_matmul(x, w.view(n, k)), flush)
+    log(f"  W1 {n}x{k} M=1 f32 table: K1 {f32:.4f} ms")
+    out = {"f32_ms": f32}
+    for name in ("int8", "nf4"):
+        codec = CODECS[name]
+        codes, scales = codec.quantise(w)
+        deq = time_ms(lambda: codec.dequantise(codes, scales), flush)
+        both = time_ms(lambda: chunked_matmul(
+            x, codec.dequantise(codes, scales).view(n, k)), flush)
+        err = (chunked_matmul(x, codec.dequantise(codes, scales).view(n, k))
+               - chunked_matmul(x, w.view(n, k))).abs().max().item()
+        out[name] = {"dequant_ms": deq, "dequant_and_k1_ms": both,
+                     "max_abs_err_vs_f32": err}
+        log(f"  W1 {name}: dequantise {deq:.4f} ms, dequantise + K1 "
+            f"{both:.4f} ms ({both / f32:.2f}x the f32 table's K1); "
+            f"max|Δ| against f32 {err:.3e}")
+    del w, codes, scales
+    return out
+
+
+def phase_cache_layout_attention(flush):
+    """K2 and K3 over caches stored in the planner's other key orders, at
+    phase 5's step shapes, viewed as the executor views them: a
+    ``head_major`` cache [(B,) Hkv, S, d] is one S-row page a sequence (a
+    strided view, no copy); a ``pos_major`` one [(B,) S, nc, Hkv, cs] at
+    chunk 64 splits a head's 128 values over two chunks, so it is first
+    gathered into a contiguous [(B,) S, Hkv, d] copy (timed apart)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels import flash_attention, paged_attention, ref
+    log("== phase 3: K2 and K3 over the head_major and pos_major cache "
+        "orders")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    H, Hkv, d, S = N_HEADS, N_KV, HEAD_DIM, MAX_LEN
+    cs = 64
+    B, lens = PAGED_STEP
+    T = FLASH_STEP
+    out = {}
+    for layout in ("head_major", "pos_major"):
+        if layout == "head_major":
+            ck = torch.randn(B, Hkv, S, d, generator=gen, device=dev)
+            cv = torch.randn(B, Hkv, S, d, generator=gen, device=dev)
+
+            def rows(c):  # the executor's view: [B, S, Hkv, d], strided
+                return c.permute(0, 2, 1, 3)
+        else:
+            ck = torch.randn(B, S, d // cs, Hkv, cs, generator=gen,
+                             device=dev)
+            cv = torch.randn(B, S, d // cs, Hkv, cs, generator=gen,
+                             device=dev)
+
+            def rows(c):  # the executor's gather: a contiguous copy
+                return c.permute(0, 1, 3, 2, 4).reshape(c.shape[0], S, Hkv,
+                                                        d)
+        kr, vr = rows(ck), rows(cv)
+        dense_k, dense_v = kr.contiguous(), vr.contiguous()
+        q = torch.randn(B, H, d, generator=gen, device=dev)
+        pt = torch.arange(B, dtype=torch.int32, device=dev).view(B, 1)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[
+            :, None, None, :]
+        live = sum(lens)
+        k2 = {
+            "kernel": lambda: paged_attention(q, kr, vr, pt, ln),
+            "plain": lambda: ref.paged_attention(q, kr, vr, pt, ln),
+            "library": lambda: sdpa(q[:, :, None], dense_k.transpose(1, 2),
+                                    dense_v.transpose(1, 2), attn_mask=mask,
+                                    enable_gqa=True)[:, :, 0],
+            "bytes": 4 * (2 * live * Hkv * d + 2 * B * H * d),
+            "flops": 4 * H * d * live, "rate": PEAKS[1],
+            "shape": f"B={B} len={lens}"}
+        qf = torch.randn(T, H, d, generator=gen,
+                         device=dev).permute(1, 0, 2)[None]
+
+        def heads(c):  # sequence 0's [1, Hkv, S, d]
+            return rows(c[:1]).transpose(1, 2)
+        hk, hv = heads(ck), heads(cv)
+        k3 = {
+            "kernel": lambda: flash_attention(qf, hk, hv, True),
+            "plain": lambda: ref.flash_attention(qf, hk, hv, True),
+            "library": lambda: sdpa(qf, hk, hv, is_causal=True,
+                                    enable_gqa=True),
+            "bytes": 4 * (2 * T * H * d + 2 * T * Hkv * d),
+            "flops": 4 * H * d * sum(t + 1 for t in range(T)),
+            "rate": TENSOR_PEAKS[torch.float32], "shape": f"T={T} S={S}"}
+        for name, c in (("paged_attention", k2), ("flash_attention", k3)):
+            got, want = c["kernel"](), c["plain"]()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            err = (got - want).abs().max().item()
+            bound, by = _bound(c["bytes"], c["flops"], c["rate"])
+            r = {"shape": c["shape"], "max_abs_err": err,
+                 "kernel_ms": time_ms(c["kernel"], flush),
+                 "plain_ms": time_ms(c["plain"], flush),
+                 "library_ms": time_ms(c["library"], flush),
+                 "bound_ms": bound, "bound_by": by}
+            if layout == "pos_major":
+                # the executor's gather of K and V before each launch, timed
+                # apart from the kernel (which reads the gathered copies)
+                r["gather_ms"] = time_ms(
+                    lambda: (rows(ck), rows(cv)) if name ==
+                    "paged_attention" else (heads(ck), heads(cv)), flush)
+            out[(name, layout)] = r
+            log(f"  {name} {layout:10s} {c['shape']:24s} kernel "
+                f"{r['kernel_ms']:.4f} ms"
+                + (f" (+ the gather {r['gather_ms']:.4f} ms)"
+                   if "gather_ms" in r else "")
+                + f"  plain {r['plain_ms']:.4f} ms  library "
+                f"{r['library_ms']:.4f} ms  bound {bound * 1e3:.3f} us "
+                f"({by})  max|err| {err:.2e}")
+        del ck, cv, kr, vr, hk, hv, dense_k, dense_v
+    return out
+
+
 def _assert_logits(lg_gpu, lg_cpu):
     """The GPU-vs-CPU limits: logits within 1e-3, greedy tokens equal
     where the CPU's top-2 margin exceeds 1e-3."""
@@ -442,20 +653,27 @@ def _assert_logits(lg_gpu, lg_cpu):
     return float(np.abs(lg_gpu - lg_cpu).max())
 
 
-def phase_engine_parity():
-    import repro_torch.serving.engine as engine_mod
-    from repro_torch.core.llama_graph import LlamaSpec, init_llama_params
-    from repro_torch.kernels import flash_attention, paged_attention
+def _engine_pair(spec, params, **knobs):
+    """The same engine on the card and on the CPU (the port's reference):
+    ``{device: engine}``.  ``accuracy_budget`` goes to the card's engine
+    only: the gate builds a second, f32 engine and changes no plan."""
     from repro_torch.serving.engine import RelationalEngine
-    log("== phase 4: engine at Llama-3-8B width, depth 2: GPU against CPU")
-    spec = LlamaSpec(vocab=VOCAB, d_model=D_MODEL, n_layers=2,
-                     n_heads=N_HEADS, n_kv=N_KV, d_ff=D_FF, rope_theta=THETA)
-    t0 = time.perf_counter()
-    params = init_llama_params(spec, seed=0)
-    log(f"numpy weights (seed 0): {time.perf_counter() - t0:.1f} s")
-    engines = {d: RelationalEngine(spec, params, chunk_size=64, max_len=64,
-                                   device=d) for d in ("cuda", "cpu")}
-    paged_attention.launches = flash_attention.launches = 0
+    gate = {"accuracy_budget": knobs.pop("accuracy_budget")} \
+        if "accuracy_budget" in knobs else {}
+    return {d: RelationalEngine(spec, params, max_len=64, device=d,
+                                **dict(dict(chunk_size=64), **knobs),
+                                **(gate if d == "cuda" else {}))
+            for d in ("cuda", "cpu")}
+
+
+def _parity_session(engines, n_layers):
+    """A 32-token prefill and 4 decode steps, the card's token fed to both
+    engines: max |Δlogit|, the tokens, and the launches on the card checked
+    (K1 7·L + 1 and one attention kernel a layer per pipeline call)."""
+    from repro_torch.kernels import (chunked_matmul, flash_attention,
+                                     paged_attention)
+    before = (chunked_matmul.launches, paged_attention.launches,
+              flash_attention.launches)
     prompt = [int(t) for t in
               np.random.default_rng(1).integers(0, VOCAB, 32)]
     sess = {d: e.start_session(prompt) for d, e in engines.items()}
@@ -470,13 +688,115 @@ def phase_engine_parity():
         max_diff = max(max_diff, _assert_logits(lg_gpu, lg_cpu))
         gpu_toks.append(int(np.argmax(lg_gpu)))
         cpu_toks.append(int(np.argmax(lg_cpu)))
-    log(f"prefill T=32 + 4 decode steps: max|Δlogit| GPU vs CPU "
-        f"{max_diff:.3e}")
-    log(f"tokens GPU {gpu_toks}")
-    log(f"tokens CPU {cpu_toks}")
+    launched = (chunked_matmul.launches - before[0],
+                paged_attention.launches - before[1],
+                flash_attention.launches - before[2])
+    assert launched == (5 * (7 * n_layers + 1), 4 * n_layers, n_layers), \
+        launched
+    return max_diff, gpu_toks, cpu_toks
 
-    # a batched decoder: three prompts, four ticks; each pipeline call's
-    # logits are taken from run_pipeline's outputs
+
+def _code_mismatches(engines):
+    """Codes and scales of every quantised table built on the card against
+    the CPU's: (mismatching elements, elements compared)."""
+    bad = total = 0
+    for name, t in engines["cuda"].env_base.items():
+        if name.endswith(("__int8", "__nf4")):
+            for c, arr in t.cols.items():
+                ref = engines["cpu"].env_base[name].cols[c]
+                bad += int((arr.cpu() != ref).sum())
+                total += ref.numel()
+    return bad, total
+
+
+# phase 4's planned cases: the reference's defaults, every forced cache
+# layout under the column layouts, both codecs through the accuracy gate,
+# and the planner's chunk size
+PLANNED_CASES = [
+    ("row2col=auto cache_layout=auto (defaults)", {}),
+    ("row2col=col cache_layout=row_chunk",
+     dict(row2col="col", cache_layout="row_chunk")),
+    ("row2col=col cache_layout=head_major",
+     dict(row2col="col", cache_layout="head_major")),
+    ("row2col=col cache_layout=pos_major",
+     dict(row2col="col", cache_layout="pos_major")),
+    ("precision=int8 accuracy_budget=1000",
+     dict(precision="int8", accuracy_budget=1e3)),
+    ("precision=nf4 accuracy_budget=1000",
+     dict(precision="nf4", accuracy_budget=1e3)),
+    ("chunk_size=auto", dict(chunk_size="auto")),
+]
+
+
+def _plan_summary(eng) -> str:
+    plan = eng.decode_pipe.layout_plan
+    if plan is None:
+        return "unplanned"
+    layouts = {}
+    for d in plan.decisions:
+        layouts[d.layout] = layouts.get(d.layout, 0) + 1
+    return (f"chunk {eng.cs}, {len(plan.decisions)} matmul sites "
+            f"{layouts}, cache {eng.cache_layout}, "
+            f"{len(plan.precision_decisions)} quantised tables")
+
+
+def phase_engine_parity():
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.core.llama_graph import LlamaSpec, init_llama_params
+    from repro_torch.kernels import flash_attention, paged_attention
+    from repro_torch.quant.gate import logit_error_between
+    log("== phase 4: engine at Llama-3-8B width, depth 2: GPU against CPU")
+    spec = LlamaSpec(vocab=VOCAB, d_model=D_MODEL, n_layers=2,
+                     n_heads=N_HEADS, n_kv=N_KV, d_ff=D_FF, rope_theta=THETA)
+    t0 = time.perf_counter()
+    params = init_llama_params(spec, seed=0)
+    log(f"numpy weights (seed 0): {time.perf_counter() - t0:.1f} s")
+    worst = 0.0
+    f32_gpu = None
+    for label, knobs in PLANNED_CASES:
+        t0 = time.perf_counter()
+        engines = _engine_pair(spec, params, **knobs)
+        built = time.perf_counter() - t0
+        diff, gpu_toks, cpu_toks = _parity_session(engines, spec.n_layers)
+        worst = max(worst, diff)
+        log(f"[{label}] {_plan_summary(engines['cuda'])}; built in "
+            f"{built:.1f} s; prefill T=32 + 4 decode steps: max|Δlogit| GPU "
+            f"vs CPU {diff:.3e}; tokens GPU {gpu_toks} CPU {cpu_toks}")
+        assert engines["cuda"].cache_layout == engines["cpu"].cache_layout
+        if "precision" in knobs:
+            bad, total = _code_mismatches(engines)
+            log(f"  codes on the card against the CPU's: {bad} of {total} "
+                f"differ" + ("" if not bad else
+                             " (held by the logits above instead)"))
+            err = logit_error_between(engines["cuda"], f32_gpu,
+                                      [3, 1, 2])
+            log(f"  accuracy gate passed; max|Δlogit| against the f32 "
+                f"engine on the probe prompt: {err:.4g}")
+        if not knobs:
+            f32_gpu = engines["cuda"]
+            _parity_batched_and_suffix(engines, spec, engine_mod,
+                                       paged_attention, flash_attention)
+        else:
+            del engines
+        torch.cuda.empty_cache()
+    # the unplanned case of the earlier slices
+    engines = _engine_pair(spec, params, row2col="off", cache_layout="off")
+    diff, gpu_toks, cpu_toks = _parity_session(engines, spec.n_layers)
+    log(f"[row2col=off cache_layout=off] unplanned: max|Δlogit| GPU vs CPU "
+        f"{diff:.3e}; tokens GPU {gpu_toks} CPU {cpu_toks}")
+    worst = max(worst, diff,
+                _parity_batched_and_suffix(engines, spec, engine_mod,
+                                           paged_attention, flash_attention))
+    del engines, params, f32_gpu
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _parity_batched_and_suffix(engines, spec, engine_mod, paged_attention,
+                               flash_attention):
+    """A batched decoder (three prompts, four ticks, each pipeline call's
+    logits taken from run_pipeline's outputs) and a suffix session over a
+    48-token prefix, on the card against the CPU."""
     logits = {}
     run_pipeline = engine_mod.run_pipeline
 
@@ -492,6 +812,7 @@ def phase_engine_parity():
                for n in (17, 32, 40)]
     decs = {d: e.batched_decoder(4) for d, e in engines.items()}
     bdiff = 0.0
+    before = (paged_attention.launches, flash_attention.launches)
     engine_mod.run_pipeline = recording
     try:
         last = []
@@ -509,18 +830,18 @@ def phase_engine_parity():
             last = toks["cuda"]
     finally:
         engine_mod.run_pipeline = run_pipeline
-    log(f"batched decoder, prompts {[len(p) for p in prompts]}, 4 ticks at "
-        f"bucket 4: max|Δlogit| GPU vs CPU {bdiff:.3e}")
-    log(f"tokens per tick (GPU, CPU) {ticks}")
-    prefills, decodes = 1 + len(prompts), 4 + decs["cuda"].decode_calls
-    assert paged_attention.launches == spec.n_layers * decodes, (
-        paged_attention.launches, decodes)
-    assert flash_attention.launches == spec.n_layers * prefills, (
-        flash_attention.launches, prefills)
-    log(f"GPU side: paged_attention launches {paged_attention.launches} = "
-        f"{spec.n_layers} x {decodes} decode run_pipeline calls, "
-        f"flash_attention launches {flash_attention.launches} = "
-        f"{spec.n_layers} x {prefills} prefill calls")
+    log(f"  batched decoder, prompts {[len(p) for p in prompts]}, 4 ticks at "
+        f"bucket 4 ({engines['cuda'].cache_layout} slot pool): max|Δlogit| "
+        f"GPU vs CPU {bdiff:.3e}")
+    log(f"  tokens per tick (GPU, CPU) {ticks}")
+    decodes = decs["cuda"].decode_calls
+    k2 = paged_attention.launches - before[0]
+    k3 = flash_attention.launches - before[1]
+    assert (k2, k3) == (spec.n_layers * decodes,
+                        spec.n_layers * len(prompts)), (k2, k3)
+    log(f"  GPU side: paged_attention launches {k2} = {spec.n_layers} x "
+        f"{decodes} decode ticks, flash_attention launches {k3} = "
+        f"{spec.n_layers} x {len(prompts)} prefills")
 
     # the prefix cache's suffix session: a 48-token prefix, then 8 suffix
     # tokens over its caches (K3 with q_offset 48), against the CPU port's
@@ -545,12 +866,10 @@ def phase_engine_parity():
     sdiff = _assert_logits(suffix["cuda"], suffix["cpu"])
     cdiff = _assert_logits(suffix["cuda"],
                            engines["cuda"].start_session(prompt)["logits"])
-    log(f"suffix session, 48-token prefix + 8 tokens (K3 q_offset 48, "
+    log(f"  suffix session, 48-token prefix + 8 tokens (K3 q_offset 48, "
         f"{spec.n_layers} launches): max|Δlogit| GPU vs CPU "
         f"{sdiff:.3e}, GPU suffix vs GPU cold session {cdiff:.3e}")
-    del engines, sess, params, decs
-    torch.cuda.empty_cache()
-    return max(max_diff, bdiff, sdiff)
+    return max(bdiff, sdiff)
 
 
 def phase_serving(n_layers: int):
@@ -568,15 +887,25 @@ def phase_serving(n_layers: int):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_llama_tensors(spec, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in params.values())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # the reference's defaults: row2col="auto", cache_layout="auto"
     eng = RelationalEngine(spec, params, chunk_size=64, max_len=512,
-                           row2col="off", cache_layout="off", device="cuda")
+                           device="cuda")
     del params
     torch.cuda.synchronize()
-    n_params = sum(t.cols[c].numel() for t in eng.env_base.values()
-                   for c in t.cols)
+    t2 = time.perf_counter()
+    twins = sum(t.cols[c].numel() * t.cols[c].element_size()
+                for name, t in eng.env_base.items() if "__col" in name
+                for c in t.cols)
     log(f"weights on the card: {n_params / 1e9:.3f} B parameters, "
-        f"{4 * n_params / 1e9:.2f} GB f32, drawn and converted in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{4 * n_params / 1e9:.2f} GB f32, drawn in {t1 - t0:.1f} s; "
+        f"engine built (decode plan compiled, tables converted, column "
+        f"twins built) in {t2 - t1:.1f} s")
+    log(f"decode plan: {_plan_summary(eng)}; column twins "
+        f"{twins / 1e9:.2f} GB; memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
     kv = PagedKVCache(PagedKVConfig(n_layers=n_layers, n_kv=N_KV,
                                     head_dim=D_MODEL // N_HEADS,
@@ -592,28 +921,33 @@ def phase_serving(n_layers: int):
 
     sched = ContinuousBatcher(kv, prefill, dec.decode, max_batch=3,
                               release_fn=dec.free)
-    rng = np.random.default_rng(2)
     lengths = (32, 64, 32, 64)
+    # compile the plans the run needs before the requests arrive, so
+    # TTFT/TPOT are steady state
+    t0 = time.perf_counter()
+    for n in sorted(set(lengths)):
+        _compile_logged(eng, f"prefill T={n}", eng._prefill_pipe, n)
+    for bucket in (1, 2, 4):
+        _compile_logged(eng, f"batched decode B={bucket}",
+                        eng._batched_decode_pipe, bucket)
+    log(f"plans compiled (prefill T={sorted(set(lengths))}, batch buckets "
+        f"1, 2, 4) in {time.perf_counter() - t0:.2f} s; memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    rng = np.random.default_rng(2)
     for rid, n in enumerate(lengths):
         sched.submit(Request(rid=rid, prompt=[int(t) for t in
                                               rng.integers(0, VOCAB, n)],
                              max_new_tokens=8))
-    # compile the plans the run needs first, so TTFT/TPOT are steady state
-    t0 = time.perf_counter()
-    for n in sorted(set(lengths)):
-        eng._prefill_pipe(n)
-    for bucket in (1, 2, 4):
-        eng._batched_decode_pipe(bucket)
-    log(f"plans compiled (prefill T={sorted(set(lengths))}, batch buckets "
-        f"1, 2, 4) in {time.perf_counter() - t0:.2f} s")
     wrappers = [getattr(kernels, name) for name in KERNELS]
     for fn in wrappers:
         fn.launches = fn.calls = 0
+    kernels.chunked_matmul.col_launches = 0
     t0 = time.perf_counter()
     done = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+    launches["chunked_matmul_col"] = kernels.chunked_matmul.col_launches
     assert all(fn.calls == fn.launches for fn in wrappers), [
         (fn.calls, fn.launches) for fn in wrappers]
     prefills, decodes = sched.stats.prefills, dec.decode_calls
@@ -630,7 +964,8 @@ def phase_serving(n_layers: int):
         f"{sched.stats.ticks}, prefills {prefills}, decode "
         f"ticks {decodes}, preemptions {sched.stats.preemptions}")
     log(f"launches: chunked_matmul {launches['chunked_matmul']} = "
-        f"{per_call} x {prefills + decodes} run_pipeline calls, "
+        f"{per_call} x {prefills + decodes} run_pipeline calls (of them "
+        f"{launches['chunked_matmul_col']} in the column layouts), "
         f"paged_attention {launches['paged_attention']} = {n_layers} x "
         f"{decodes} decode ticks, flash_attention "
         f"{launches['flash_attention']} = {n_layers} x {prefills} prefills")
@@ -645,6 +980,21 @@ def phase_serving(n_layers: int):
     del dec, kv
     torch.cuda.empty_cache()
     return launches, eng
+
+
+def _compile_logged(eng, label, compile_fn, *args):
+    """Compile one plan through the engine's cache and print its compile
+    time and decisions."""
+    t0 = time.perf_counter()
+    pipe = compile_fn(*args)
+    secs = time.perf_counter() - t0
+    plan = pipe.layout_plan
+    log(f"  plan {label}: compiled in {secs:.2f} s; "
+        + ("unplanned" if plan is None else
+           f"{len(plan.decisions)} matmul sites, {len(plan.col_decisions)} "
+           f"in the column layouts, caches "
+           f"{sorted({d.layout for d in plan.cache_decisions})}"))
+    return pipe
 
 
 def _prefix_traffic():
@@ -721,9 +1071,11 @@ def phase_prefix_serving(eng):
     prompts = _prefix_traffic()
     t0 = time.perf_counter()
     for p in prompts:
-        eng._prefill_pipe(len(p))
+        _compile_logged(eng, f"prefill T={len(p)}", eng._prefill_pipe,
+                        len(p))
     for n in HIT_TAILS:
-        eng._prefill_pipe(n, suffix=True)
+        _compile_logged(eng, f"suffix prefill T={n}", eng._prefill_pipe, n,
+                        True)
     log(f"plans compiled (cold T={sorted({len(p) for p in prompts})}, "
         f"suffix T={list(HIT_TAILS)}) in {time.perf_counter() - t0:.2f} s")
     cold_dec = eng.batched_decoder(max_seqs=3, prefix_block=0)
@@ -740,8 +1092,10 @@ def phase_prefix_serving(eng):
                                   prefix_bind=mode)
         for fn in wrappers:
             fn.launches = fn.calls = 0
+        kernels.chunked_matmul.col_launches = 0
         done, sched, walls = _serve_prefix_traffic(eng, dec, prompts, reg)
         run = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+        run["chunked_matmul_col"] = kernels.chunked_matmul.col_launches
         assert all(fn.calls == fn.launches for fn in wrappers), [
             (fn.calls, fn.launches) for fn in wrappers]
         pc = dec.prefix_cache
@@ -803,6 +1157,8 @@ def phase_prefix_serving(eng):
         "identical" if not worst else
         f"first divergences (req, step, cold top-2 margin) {worst}, each "
         f"at a margin <= 1e-3"))
+    log(f"max memory allocated since phase 5's engine build "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launches, ttft
 
 
@@ -867,27 +1223,35 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     _, attn_step, attn_err = timed("phase 3 (K2, K3)",
                                    phase_attention_kernels, flush)
+    col_steps, col_err = timed("phase 3 (K1 column layouts)",
+                               phase_col_kernels, flush)
+    cache_rows = timed("phase 3 (K2, K3 cache orders)",
+                       phase_cache_layout_attention, flush)
+    quant_k1 = timed("phase 3 (quantised K1)", phase_quant_k1, flush)
     del flush
     timed("phase 4", phase_engine_parity)
     serving, eng = timed("phase 5", phase_serving, N_LAYERS)
     prefix, _ = timed("phase 6", phase_prefix_serving, eng)
+    cache_layout = eng.cache_layout
     del eng
     torch.cuda.empty_cache()
     # each main path's counts, zeroed just before it and read just after:
     # phase 5's cold serving, phase 6's prefix-cached serving per bind mode
     paths = {"serving": serving, "prefix_serving_copy": prefix["copy"],
              "prefix_serving_share": prefix["share"]}
+    counted = KERNELS + ("chunked_matmul_col",)
     launches = {name: sum(p[name] for p in paths.values())
-                for name in KERNELS}
+                for name in counted}
     by_path = {name: {path: p[name] for path, p in paths.items()}
-               for name in KERNELS}
+               for name in counted}
+    assert launches["chunked_matmul_col"] > 0, launches
     log("kernels: K1 chunked_matmul: ok, K2 paged_attention: ok, "
         "K3 flash_attention: ok")
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
     kernels = [{
         "name": "chunked_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chunked_matmul.cu",
-        "replaces": "src/repro/kernels/chunked_matmul.py:42",
+        "replaces": REPLACES["chunked_matmul"],
         "launches": launches["chunked_matmul"],
         "launches_by_path": by_path["chunked_matmul"], "max_abs_err": max_err,
         "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
@@ -896,19 +1260,17 @@ def main() -> int:
         "prefill_ms": prefill["kernel_ms"],
         "prefill_library_ms": prefill["library_ms"],
         "prefill_bound_ms": prefill["bound_ms"],
+        "quantised_w1_m1": quant_k1,
         "times_are": f"one decode step's {sum(STEP_COUNTS.values())} GEMMs "
                      f"at M=1 (prefill_*: one {PREFILL_M}-token prefill's), "
                      f"summed from per-shape medians"}]
-    for name, tpu_line, what in (
-            ("paged_attention", "src/repro/kernels/paged_attention.py:80",
-             "one decode tick"),
-            ("flash_attention", "src/repro/kernels/flash_attention.py:72",
-             "one prefill")):
+    for name, what in (("paged_attention", "one decode tick"),
+                       ("flash_attention", "one prefill")):
         r = attn_step[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": tpu_line, "launches": launches[name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "launches_by_path": by_path[name],
             "max_abs_err": attn_err[name],
             "ms": N_LAYERS * r["kernel_ms"],
@@ -929,6 +1291,53 @@ def main() -> int:
         "times_are": f"one suffix prefill's {N_LAYERS} launches, q_offset "
                      f"{SUFFIX_STEP[1]}; library: SDPA with the boolean "
                      f"offset mask"}
+    # the planned main path: K1 in the column layouts, and K2/K3 over the
+    # resolved cache layout (every K2 and K3 launch of phases 5 and 6 read
+    # caches in it); the other layout's times ride along in the row
+    col = col_steps[1]
+    kernels.append({
+        "name": "chunked_matmul (column layouts)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/chunked_matmul.cu",
+        "replaces": REPLACES["chunked_matmul"],
+        "launches": launches["chunked_matmul_col"],
+        "launches_by_path": by_path["chunked_matmul_col"],
+        "max_abs_err": col_err, "ms": col["kernel_ms"],
+        "plain_ms": col["plain_ms"], "bound_ms": col["bound_ms"],
+        "bound_by": col["bound_by"], "library_ms": col["library_ms"],
+        "decode_m4_ms": col_steps[4]["kernel_ms"],
+        "decode_m4_library_ms": col_steps[4]["library_ms"],
+        "prefill_ms": col_steps[PREFILL_M]["kernel_ms"],
+        "prefill_library_ms": col_steps[PREFILL_M]["library_ms"],
+        "prefill_bound_ms": col_steps[PREFILL_M]["bound_ms"],
+        "times_are": f"one decode step's {sum(COL_COUNTS.values())} "
+                     f"column-layout GEMMs (Q COLH, o, W1, W3 a layer, "
+                     f"lm_head) at M=1 (decode_m4_*: M=4, prefill_*: "
+                     f"M={PREFILL_M}); library: torch.matmul"})
+    if cache_layout != "row_chunk":
+        others = [lay for lay in ("head_major", "pos_major")
+                  if lay != cache_layout]
+        for name in ("paged_attention", "flash_attention"):
+            r = cache_rows[(name, cache_layout)]
+
+            def scaled(row):
+                return {k: (N_LAYERS * v if k.endswith("_ms") else v)
+                        for k, v in row.items() if k != "max_abs_err"}
+            kernels.append({
+                "name": f"{name} ({cache_layout})", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": REPLACES[name],
+                "launches": launches[name],
+                "launches_by_path": by_path[name],
+                "max_abs_err": r["max_abs_err"],
+                "ms": N_LAYERS * r["kernel_ms"],
+                "plain_ms": N_LAYERS * r["plain_ms"],
+                "bound_ms": N_LAYERS * r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": N_LAYERS * r["library_ms"],
+                **{lay: scaled(cache_rows[(name, lay)]) for lay in others},
+                "times_are": f"{N_LAYERS} launches at {r['shape']} over "
+                             f"{cache_layout} caches, {N_LAYERS} x the "
+                             f"per-launch median"})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -100,6 +100,83 @@ def scalar_table(name: str, key_cols, tensor, col="s") -> DenseTable:
                       col_types={col: SCALAR})
 
 
+def col_table_from_dense(arr: torch.Tensor, col_chunk: int, d_key: str = "d",
+                         chunk_key: str = "c", vec_col: str = "chunk"
+                         ) -> DenseTable:
+    """Build a COL_CHUNK weight table from a dense matrix ``W ∈ R^{m×n}``
+    (on its device): transposed keys ``(d ∈ [n), c ∈ [⌈m/cs'⌉))`` with the
+    vector chunking the *output* dimension (the planner's ROW2COL physical
+    layout).  Non-divisor chunk sizes zero-pad the output tail."""
+    m, n = arr.shape
+    n_chunks = max(1, -(-m // col_chunk))
+    pad = n_chunks * col_chunk - m
+    if pad:
+        arr = F.pad(arr, (0, 0, 0, pad))
+    data = arr.T.contiguous().reshape(n, n_chunks, col_chunk)
+    return DenseTable(
+        keys=((d_key, n), (chunk_key, n_chunks)),
+        cols={vec_col: data},
+        col_types={vec_col: ra.VEC(col_chunk)},
+    )
+
+
+def transpose_chunked_table(table: DenseTable, col_chunk: int,
+                            d_key: str = "d", chunk_key: str = "c"
+                            ) -> DenseTable:
+    """ROW_CHUNK → COL_CHUNK: re-express a row-chunked weight table
+    ``(j, c, chunk[cs])`` as its transposed column-layout twin, on the
+    table's device (the SQL side is ``LayoutPlan.conversion_sql``)."""
+    if len(table.keys) != 2 or len(table.cols) != 1:
+        raise ValueError(f"not a 2-key chunked weight table: {table.keys}")
+    (jname, m), (cname, nch) = table.keys
+    vec_col, arr = next(iter(table.cols.items()))
+    if not is_vec(table.col_types[vec_col]):
+        raise ValueError(f"column {vec_col} is not a vector column")
+    dense = arr.reshape(m, nch * arr.shape[-1])
+    return col_table_from_dense(dense, col_chunk, d_key=d_key,
+                                chunk_key=chunk_key, vec_col=vec_col)
+
+
+def colh_table_from_dense(arr: torch.Tensor, col_chunk: int,
+                          head_key: str = "h", d_key: str = "d",
+                          chunk_key: str = "c", vec_col: str = "chunk"
+                          ) -> DenseTable:
+    """Build a COL_CHUNK_HEADS weight table from a dense per-head projection
+    ``W ∈ R^{H×dh×n}`` (on its device): keys ``(h ∈ [H), d ∈ [n),
+    c ∈ [⌈dh/cs'⌉))``, data ``[H, n, ⌈dh/cs'⌉, cs']`` (non-divisor sizes
+    zero-pad the tail)."""
+    H, dh, n = arr.shape
+    n_chunks = max(1, -(-dh // col_chunk))
+    pad = n_chunks * col_chunk - dh
+    if pad:
+        arr = F.pad(arr, (0, 0, 0, pad))
+    data = arr.transpose(1, 2).contiguous().reshape(H, n, n_chunks,
+                                                    col_chunk)
+    return DenseTable(
+        keys=((head_key, H), (d_key, n), (chunk_key, n_chunks)),
+        cols={vec_col: data},
+        col_types={vec_col: ra.VEC(col_chunk)},
+    )
+
+
+def transpose_head_chunked_table(table: DenseTable, col_chunk: int,
+                                 d_key: str = "d", chunk_key: str = "c"
+                                 ) -> DenseTable:
+    """ROW_CHUNK → COL_CHUNK_HEADS: re-express a per-head row-chunked weight
+    table ``(h, r, c, chunk[cs])`` as its head-blocked column twin
+    ``(h, d, c', chunk[cs'])``, on the table's device."""
+    if len(table.keys) != 3 or len(table.cols) != 1:
+        raise ValueError(f"not a 3-key per-head weight table: {table.keys}")
+    (hname, H), (rname, dh), (cname, nch) = table.keys
+    vec_col, arr = next(iter(table.cols.items()))
+    if not is_vec(table.col_types[vec_col]):
+        raise ValueError(f"column {vec_col} is not a vector column")
+    dense = arr.reshape(H, dh, nch * arr.shape[-1])
+    return colh_table_from_dense(dense, col_chunk, head_key=hname,
+                                 d_key=d_key, chunk_key=chunk_key,
+                                 vec_col=vec_col)
+
+
 def permute_table_keys(table: DenseTable, key_order) -> DenseTable:
     """Re-key a DenseTable to a new physical key order (name-based axis
     permute) — the executor realisation of a cache-layout choice.  Vector
@@ -119,6 +196,92 @@ def permute_table_keys(table: DenseTable, key_order) -> DenseTable:
         col_types[c] = table.col_types[c]
     return DenseTable(keys=tuple((k, sizes[k]) for k in key_order),
                       cols=cols, col_types=col_types)
+
+
+def rechunk_chunked_table(table: DenseTable, chunk_size: int,
+                          true_width: int = 0) -> DenseTable:
+    """Re-chunk a chunked table ``(…, c, vec[cs])`` to a new physical chunk
+    size, on the table's device — the executor side of a planner per-table
+    chunk-size decision.
+
+    The trailing chunk-key axis and vector payload are merged back to the
+    logical width (``true_width`` strips existing padding when given) and
+    re-split at ``chunk_size``, zero-padding the new tail if it does not
+    divide.  Leading keys are untouched.
+    """
+    if len(table.cols) != 1:
+        raise ValueError("rechunk expects a single-vector-column table")
+    (cname, nch) = table.keys[-1]
+    vec_col, arr = next(iter(table.cols.items()))
+    if not is_vec(table.col_types[vec_col]):
+        raise ValueError(f"column {vec_col} is not a vector column")
+    cs = arr.shape[-1]
+    width = true_width or nch * cs
+    flat = arr.reshape(*arr.shape[:-2], nch * cs)[..., :width]
+    n2 = max(1, -(-width // chunk_size))
+    pad = n2 * chunk_size - width
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    data = flat.reshape(*flat.shape[:-1], n2, chunk_size)
+    return DenseTable(
+        keys=table.keys[:-1] + ((cname, n2),),
+        cols={vec_col: data},
+        col_types={vec_col: ra.VEC(chunk_size)},
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plan-op classification (statement ↔ op provenance)
+# ---------------------------------------------------------------------------
+
+# relational node type → op class (the vocabulary the SQL generator's
+# provenance tags use)
+OP_CLASSES = {
+    Scan: "scan",
+    Project: "project",
+    Join: "join",
+    GroupAgg: "aggregate",
+    Filter: "filter",
+    Unnest: "unnest",
+    Collect: "collect",
+}
+
+
+def iter_plan_nodes(root: RelNode):
+    """Every distinct node of a relational plan, root first.  Plans are
+    DAGs (downstream steps embed upstream roots); tracking visited ids
+    keeps the walk linear in distinct nodes."""
+    stack = [root]
+    seen = {id(root)}
+    while stack:
+        node = stack.pop()
+        yield node
+        if isinstance(node, (Project, Filter, Unnest, Collect, GroupAgg)):
+            kids = (node.input,)
+        elif isinstance(node, Join):
+            kids = (node.left, node.right)
+        else:
+            kids = ()
+        for kid in kids:
+            if id(kid) not in seen:
+                seen.add(id(kid))
+                stack.append(kid)
+
+
+def classify_plan_node(node: RelNode) -> str:
+    return OP_CLASSES.get(type(node), "other")
+
+
+def plan_provenance(root: RelNode) -> Tuple[Tuple[str, ...],
+                                            Tuple[str, ...]]:
+    """(op classes, scanned base tables) of a plan — the provenance tag
+    the SQL generator stamps on each emitted statement."""
+    ops, tables = set(), set()
+    for node in iter_plan_nodes(root):
+        ops.add(classify_plan_node(node))
+        if isinstance(node, Scan):
+            tables.add(node.table)
+    return tuple(sorted(ops)), tuple(sorted(tables))
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +457,11 @@ def _eval_expr(expr: Expr, table: DenseTable):
             a, _ = _eval_expr(expr.args[0], table)
             return a[..., a.shape[-1] // 2:], True
         if expr.fn == "nf4_dequant":
-            raise NotImplementedError(
-                "nf4_dequant needs the quantised payload codecs: see "
-                "ROADMAP.md next slice N4 (codecs and pager)")
+            # NF4 codebook lookup: integer codes → the 16 normalised
+            # levels; the scale multiply is an ordinary vec × scalar BinOp
+            from repro_torch.quant.codecs import nf4_dequant_levels
+            a, _ = _eval_expr(expr.args[0], table)
+            return nf4_dequant_levels(a), True
         if expr.fn in _UNARY:
             a, av = _eval_expr(expr.args[0], table)
             return _UNARY[expr.fn](a), av
@@ -461,6 +626,31 @@ def _is_gemm_site(node: GroupAgg, join: Join, left: DenseTable,
             == left.key_names[:-1] + right.key_names[:-1])
 
 
+def _col_site_heads(node: GroupAgg, join: Join, left: DenseTable,
+                    right: DenseTable, lcol: str, rcol: str
+                    ) -> Optional[int]:
+    """The ROW2COL column plan γ_{G_L+[h]+[c], SUM(xs·chunk)}(X(G_L, d)
+    ⋈_d W__col([h,] d, c, chunk[cs'])): a GEMM ``C = X·W`` over the
+    transposed table (``planner/row2col.py`` ``_build_col_plan``).  The
+    activation's scalar ``xs`` has the join key ``d`` last, the weight its
+    ``d`` key second to last.  Returns the number of head blocks H (1 for
+    a COL_CHUNK table, the head key's size for COL_CHUNK_HEADS), or None
+    when ``node`` is not such a site."""
+    if len(join.on) != 1 or not left.keys or len(right.keys) not in (2, 3):
+        return None
+    rkey, e = join.on[0]
+    lk, lsize = left.keys[-1]
+    (dk, dsize), (ck, _) = right.keys[-2], right.keys[-1]
+    if not (isinstance(e, Key) and e.name == lk and rkey == dk
+            and lsize == dsize
+            and not is_vec(left.col_types[lcol])
+            and is_vec(right.col_types[rcol])
+            and tuple(node.group_keys) == left.key_names[:-1]
+            + right.key_names[:-2] + (ck,)):
+        return None
+    return right.key_sizes[0] if len(right.keys) == 3 else 1
+
+
 def _unit_inner(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself if its inner stride is 1 (as the kernels need), else a
     contiguous copy."""
@@ -479,8 +669,12 @@ def _try_fused_join_agg(node: GroupAgg, env, memo, scalars=None):
     Conditions: single SUM aggregate whose expression is ``dot(a, b)``,
     ``mul(a, b)`` or ``scale(dot(a, b), c)`` with ``a`` from the left input
     and ``b`` from the right; every join condition references at most one
-    left key.  GEMM-shaped sites go to the ``chunked_matmul`` kernel, the
-    rest to ``torch.einsum``.  Returns None when the pattern does not apply.
+    left key.  GEMM-shaped sites go to the ``chunked_matmul`` kernel: the
+    row layout's ``SUM(dot)`` over the chunk key, and the planner's column
+    layouts' ``SUM(mul)`` over the transposed table's ``d`` key (a
+    quantised table reaches it through its dequant projection, executed
+    as the join's right input).  The rest run ``torch.einsum``.  Returns
+    None when the pattern does not apply.
     """
     if not isinstance(node.input, Join) or len(node.aggs) != 1:
         return None
@@ -532,6 +726,18 @@ def _try_fused_join_agg(node: GroupAgg, env, memo, scalars=None):
         k = left.key_sizes[-1] * larr.shape[-1]
         res = chunked_matmul(_rows(larr, m, k), _rows(rarr, n, k)).reshape(
             left.key_sizes[:-1] + right.key_sizes[:-1])
+        return DenseTable(keys=out_schema.keys, cols={out_col: res},
+                          col_types={out_col: out_schema.col_type(out_col)})
+    heads = (None if contract_payload or scale_const is not None
+             else _col_site_heads(node, join, left, right, lcol, rcol))
+    if heads is not None:
+        # X [M, K] is the activation itself (its Unnest and key merge are
+        # views); W [H, K, Nh] the table in place
+        m = math.prod(left.key_sizes[:-1])
+        k = left.key_sizes[-1]
+        w = _unit_inner(rarr.reshape(heads, k, -1))
+        res = chunked_matmul(_rows(larr, m, k), w, layout="col").reshape(
+            tuple(s for _, s in out_schema.keys) + (rarr.shape[-1],))
         return DenseTable(keys=out_schema.keys, cols={out_col: res},
                           col_types={out_col: out_schema.col_type(out_col)})
 
@@ -590,7 +796,7 @@ class _AttentionSite:
 
     kind: str                 # "batched" | "decode" | "prefill"
     q: RelNode                # query table (t | seq, h, c)
-    k: Scan                   # K cache ((seq,) tp, hk, c)
+    k: Scan                   # K cache ((seq,) + one of _CACHE_ORDERS)
     v: Scan                   # V cache, same keys
     q_col: str
     k_col: str
@@ -630,12 +836,18 @@ def _other(expr: Expr, op_or_fn: str, known: str) -> Optional[str]:
     return names[1 - names.index(known)]
 
 
+# the cache key orders the planner chooses from (``core/opmap.py``
+# ``CACHE_KEY_ORDERS``): row_chunk, head_major, pos_major
+_CACHE_ORDERS = (("tp", "hk", "c"), ("hk", "tp", "c"), ("tp", "c", "hk"))
+
+
 def _match_attention(node: GroupAgg) -> Optional[_AttentionSite]:
     """Recognise the attention output ``γ_{t,h,c} SUM(p·v)(P ⋈ Vcache)``
     whose P is the subplan ``map_attn_scores``/``map_causal_mask``/
-    ``map_softmax`` emit (``core/opmap.py``) over caches in the unplanned
-    key order ``(seq,) tp, hk, c``, with scale 1/√head_dim and no chunk
-    padding.  Returns None for anything else."""
+    ``map_softmax`` emit (``core/opmap.py``) over caches in any of the
+    planner's key orders (``(seq,)`` then ``tp, hk, c`` / ``hk, tp, c`` /
+    ``tp, c, hk``), with scale 1/√head_dim and no chunk padding.  Returns
+    None for anything else."""
     if len(node.aggs) != 1 or len(node.group_keys) != 3 \
             or not isinstance(node.input, Join) \
             or not isinstance(node.input.right, Scan):
@@ -702,8 +914,8 @@ def _match_attention(node: GroupAgg) -> Optional[_AttentionSite]:
     if q_col is None:
         return None
     batched = t == "seq"
-    cache_keys = (("seq",) if batched else ()) + ("tp", "hk", "c")
-    if k_scan.table_schema.key_names != cache_keys \
+    lead = ("seq",) if batched else ()
+    if k_scan.table_schema.key_names not in [lead + o for o in _CACHE_ORDERS] \
             or v_scan.table_schema.keys != k_scan.table_schema.keys \
             or v_scan.table_schema.cols[0][1] != k_scan.table_schema.cols[0][1]:
         return None
@@ -769,20 +981,30 @@ def _try_fused_attention(node: GroupAgg, env, memo, scalars=None):
     """Run a matched attention subplan on one kernel; None if ``node`` is
     not one.
 
-    Decode (single or batched) goes to ``paged_attention``: each cache
-    ``[(B,) S, Hkv, d]`` is viewed as a pool of ``page = gcd(S, 64)``-row
-    pages with an identity page table, and the lengths are the positions
-    + 1 (the batched ones stay on the device: no host sync).  Prefill goes
-    to ``flash_attention`` with q ``[1, H, T, d]`` and k/v ``[1, Hkv, S, d]``
-    as strided views of the tables, and a suffix prefill's offset (a host
-    int) as its ``q_offset``.  Both kernels read only the live rows.
+    Each cache is first viewed in the order ``[(B,) S, Hkv, nc, cs]``
+    whatever its planned key order.  Decode (single or batched) goes to
+    ``paged_attention``: a ``row_chunk`` cache is viewed as a pool of
+    ``page = gcd(S, 64)``-row pages, a ``head_major`` one as one S-row page
+    a sequence (its slot stride is d, its head stride S·d: a strided view,
+    no copy), each with an identity page table, and the lengths are the
+    positions + 1 (the batched ones stay on the device: no host sync).
+    Prefill goes to ``flash_attention`` with q ``[1, H, T, d]`` and k/v
+    ``[1, Hkv, S, d]`` as strided views of the tables, and a suffix
+    prefill's offset (a host int) as its ``q_offset``.  A ``pos_major``
+    cache with ``nc > 1`` splits a head's d-vector across chunks at a
+    stride of Hkv·cs, which no row view expresses: it is gathered into a
+    contiguous ``[(B,) S, Hkv, d]`` copy before either launch.  Both
+    kernels read only the live rows.
     """
     site = _attention_site(node)
     if site is None:
         return None
     qt = execute(site.q, env, memo, scalars)
-    kt = execute(site.k, env, memo, scalars)
-    vt = execute(site.v, env, memo, scalars)
+    lead = ("seq",) if site.kind == "batched" else ()
+    row_order = lead + _CACHE_ORDERS[0]
+    kt = permute_table_keys(execute(site.k, env, memo, scalars), row_order)
+    vt = permute_table_keys(execute(site.v, env, memo, scalars), row_order)
+    row_major = site.k.table_schema.key_names == row_order
     d = site.head_dim
     nq, n_heads = qt.key_sizes[0], qt.key_sizes[1]
     q = _unit_inner(qt.cols[site.q_col].reshape(nq, n_heads, d))
@@ -800,7 +1022,7 @@ def _try_fused_attention(node: GroupAgg, env, memo, scalars=None):
     else:
         n_seq = nq if site.kind == "batched" else 1
         S, n_kv = kt.key_sizes[-3], kt.key_sizes[-2]
-        page = math.gcd(S, 64)
+        page = math.gcd(S, 64) if row_major else S
 
         def pool(t):  # [(B,) S, Hkv, nc, cs] → [B·S/page, page, Hkv, d]
             return _unit_inner(t.reshape(n_seq * S // page, page, n_kv, d))

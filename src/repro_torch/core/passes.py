@@ -188,9 +188,8 @@ def postoptimize(pipeline: RelPipeline, layout_mode: str = "off",
     and a combine decision recorded on ``pipeline.shard_plan``
     (``repro.planner.shard``); plans themselves are not rewritten.
     The resulting ``LayoutPlan`` is recorded on ``pipeline.layout_plan``.
-
-    In this port only the ``"off"`` modes exist (CTE fusion alone); any
-    other mode raises ``NotImplementedError`` until the planner is ported.
+    The shard plan is plan-side only in this port: executing it needs
+    ``run_pipeline(shard_runner=)``, which raises (ROADMAP N7).
     """
     before = count_nodes(pipeline)
     memo: Dict[int, RelNode] = {}
@@ -202,13 +201,23 @@ def postoptimize(pipeline: RelPipeline, layout_mode: str = "off",
     sharded = bool(shards) and int(shards) > 1
     if layout_mode != "off" or cache_mode != "off" \
             or precision_mode != "off" or sharded:
-        # the physical planner (ROW2COL layouts, cache layouts, chunk
-        # sizes, payload precisions, shards) is not part of this port yet
-        raise NotImplementedError(
-            f"physical planning (layout_mode={layout_mode!r}, "
-            f"cache_mode={cache_mode!r}, precision_mode={precision_mode!r}, "
-            f"shards={shards!r}) is not ported: see ROADMAP.md next slices "
-            f"N4 (codecs), N5 (planner) and N7 (shards)")
+        from repro_torch.planner import plan_layouts
+        plan = plan_layouts(pipeline, mode=layout_mode, params=cost_params,
+                            budget_bytes=budget_bytes, cache_mode=cache_mode,
+                            chunk_mode=chunk_mode,
+                            chunk_candidates=chunk_candidates,
+                            table_chunks=table_chunks, pool=pool,
+                            precision_mode=precision_mode,
+                            table_precisions=table_precisions,
+                            shards=shards)
+        stats["row2col_sites"] = len(plan.decisions)
+        stats["row2col_rewrites"] = len(plan.col_decisions)
+        stats["cache_relayouts"] = sum(
+            1 for d in plan.cache_decisions if d.layout != "row_chunk")
+        stats["chunk_planned_tables"] = len(pipeline.table_chunks)
+        stats["quantised_tables"] = len(plan.precision_decisions)
+        sp = pipeline.shard_plan
+        stats["sharded_sites"] = len(sp.decisions) if sp is not None else 0
     stats["rel_nodes_after"] = count_nodes(pipeline)
     return stats
 

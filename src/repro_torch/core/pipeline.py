@@ -50,14 +50,18 @@ def run_pipeline(
     its cache table raises ``IndexError`` (the reference clamps the start
     of the write or drops it).
 
-    ``layout_plan``, ``tracer`` and ``shard_runner`` keep the reference's
-    signature; the physical planner, tracing and shards are not ported, so
-    anything but ``None`` raises ``NotImplementedError``.
+    If the pipeline was layout-planned (``repro_torch.planner.
+    plan_layouts``), the plan's COL_CHUNK / COL_CHUNK_HEADS tables,
+    re-chunked ROW_CHUNK tables and quantised twins are materialised on
+    the environment's device into this call's copy of ``env`` wherever the
+    caller has not registered them (``LayoutPlan.ensure_env``), and cache
+    tables are aligned to the planned key order; pass ``layout_plan`` to
+    override the plan recorded on the pipeline.
+
+    ``tracer`` and ``shard_runner`` keep the reference's signature;
+    tracing and shards are not ported, so anything but ``None`` raises
+    ``NotImplementedError``.
     """
-    if layout_plan is not None or getattr(pipeline, "layout_plan", None):
-        raise NotImplementedError(
-            "layout-planned pipelines need the planner: see ROADMAP.md "
-            "next slice N5")
     if tracer is not None:
         raise NotImplementedError(
             "pipeline tracing is not ported: see ROADMAP.md next slice N6")
@@ -65,6 +69,9 @@ def run_pipeline(
         raise NotImplementedError(
             "sharded execution is not ported: see ROADMAP.md next slice N7")
     env = dict(env)
+    layout_plan = layout_plan or getattr(pipeline, "layout_plan", None)
+    if layout_plan is not None:
+        env = layout_plan.ensure_env(env)
     device = next(iter(next(iter(env.values())).cols.values())).device
     host, scalars = _bind_scalars(scalars or {}, device)
     memo: Dict[int, DenseTable] = {}

@@ -16,9 +16,16 @@ import torch
 NEG_INF = -1e30
 
 
-def chunked_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def chunked_matmul(x: torch.Tensor, w: torch.Tensor,
+                   layout: str = "row") -> torch.Tensor:
     """C = X Wᵀ — the paper's MatMul-as-join+γ. x [M,K], w [N,K] → [M,N],
-    accumulated in float32 and returned in ``x.dtype``."""
+    accumulated in float32 and returned in ``x.dtype``.  In the column
+    layouts (``layout="col"``) w is [H, K, Nh], H column blocks of the
+    transposed weight, and C [M, H·Nh] = X·w[h] block by block."""
+    if layout == "col":
+        M, H = x.shape[0], w.shape[0]
+        return (x.float() @ w.float()).permute(1, 0, 2).reshape(
+            M, H * w.shape[2]).to(x.dtype)
     return (x.float() @ w.float().T).to(x.dtype)
 
 

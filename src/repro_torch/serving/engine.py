@@ -10,12 +10,15 @@ matching §4's definitions.  Host clocks around work that ends in a
 device-to-host copy of the logits, so on a GPU they include the device
 time.
 
-This port runs the ``residency="in_memory"``, ``precision="f32"``,
-unplanned (``row2col="off"``, ``cache_layout="off"``), unsharded
-configuration, with the prefix cache (``BatchedDecoder(prefix_block=16)``,
-the reference's default) and an optional ``metrics`` registry
-(``repro_torch.obs.MetricsRegistry``); every other knob raises
-``NotImplementedError`` naming the ROADMAP.md slice that brings it.
+This port runs the reference's defaults: every pipeline is physically
+planned (``row2col="auto"``, ``cache_layout="auto"``: ROW2COL column
+weight layouts and the planner's KV-cache key order), with ``chunk_size``,
+``chunk_candidates``, ``cost_params``, ``precision``, ``table_precisions``
+and ``accuracy_budget`` as in the reference, in-memory residency, the
+prefix cache (``BatchedDecoder(prefix_block=16)``) and an optional
+``metrics`` registry (``repro_torch.obs.MetricsRegistry``).  Paged
+residency, ``tracer`` and ``shards > 1`` raise ``NotImplementedError``
+naming the ROADMAP.md slice that brings them.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.core.graph import infer_shapes
 from repro_torch.core.opmap import op_map
 from repro_torch.core.passes import postoptimize, preoptimize
 from repro_torch.core.pipeline import run_pipeline
+from repro_torch.planner import CACHE_MODES, MODES, ResidencyPool
 from repro_torch.serving.kvcache import BatchedCacheTables, PrefixCache
 
 
@@ -53,40 +57,50 @@ def _not_ported(knob: str, value, slice_: str) -> NotImplementedError:
 class RelationalEngine:
     """The paper's engine: two-stage-compiled pipelines over chunked tables.
 
-    Takes the reference engine's parameters.  The defaults here are the
-    values this port implements (``row2col="off"``, ``cache_layout="off"``);
-    they become the reference's defaults once the planner is ported.
+    Takes the reference engine's parameters and defaults.  ``row2col``
+    (``"off"`` / ``"auto"`` / ``"col"``) and ``cache_layout`` (``"off"`` /
+    ``"auto"`` / a layout name) run the physical planner on every
+    pipeline; prefill and batched plans are forced to the decode plan's
+    cache layout, so every session cache, batched pool and prefix segment
+    has one key order.  ``chunk_size="auto"`` picks the base chunk size
+    with the planner's cost model over ``chunk_candidates`` and plans
+    per-table chunk sizes; ``cost_params`` replaces the analytic cost
+    weights.  ``precision`` (``"f32"`` / ``"auto"`` / ``"int8"`` /
+    ``"nf4"``) and ``table_precisions`` make the stored payload format a
+    planner decision; ``accuracy_budget`` runs the quant gate against an
+    f32 engine at construction.  The planned column, re-chunked and
+    quantised tables are built once on the device beside the row tables.
+
     ``device`` is where the weight tables, caches and every kernel live:
     the CUDA card unless the caller passes ``"cpu"``.  ``metrics`` is an
-    optional ``repro_torch.obs.MetricsRegistry``: plan-cache lookups and
-    single-sequence decode step latency here, decode ticks and the prefix
-    cache in :class:`BatchedDecoder`, requests in the scheduler.
+    optional ``repro_torch.obs.MetricsRegistry``: plan-cache lookups,
+    single-sequence decode step latency, re-plans and quantised bytes
+    here, decode ticks and the prefix cache in :class:`BatchedDecoder`,
+    requests in the scheduler.
     """
+
+    PRECISION_KNOBS = ("f32", "auto", "int8", "nf4")
 
     def __init__(self, spec: lg.LlamaSpec, params: Dict[str, object],
                  chunk_size=64, residency: str = "in_memory",
                  budget_bytes: Optional[int] = None,
                  disk_dir: Optional[str] = None, max_len: int = 1024,
-                 pager_policy: str = "pin", row2col: str = "off",
-                 cache_layout: str = "off",
+                 pager_policy: str = "pin", row2col: str = "auto",
+                 cache_layout: str = "auto",
                  chunk_candidates=None, cost_params=None,
                  precision: str = "f32",
                  table_precisions: Optional[Dict[str, str]] = None,
                  accuracy_budget: Optional[float] = None,
                  metrics=None, tracer=None, shards=None, device="cuda"):
-        if row2col != "off":
-            raise _not_ported("row2col", row2col, "N5 (planner)")
-        if cache_layout != "off":
-            raise _not_ported("cache_layout", cache_layout, "N5 (planner)")
-        if not isinstance(chunk_size, int):
-            raise _not_ported("chunk_size", chunk_size, "N5 (planner)")
-        if chunk_candidates is not None or cost_params is not None:
-            raise _not_ported("chunk_candidates/cost_params",
-                              (chunk_candidates, cost_params),
-                              "N5 (planner)")
-        if precision != "f32" or table_precisions or \
-                accuracy_budget is not None:
-            raise _not_ported("precision", precision, "N4 (codecs)")
+        if row2col not in MODES:
+            raise ValueError(f"row2col must be one of {MODES}, got "
+                             f"{row2col!r}")
+        if cache_layout not in CACHE_MODES:
+            raise ValueError(f"cache_layout must be one of {CACHE_MODES}, "
+                             f"got {cache_layout!r}")
+        if precision not in self.PRECISION_KNOBS:
+            raise ValueError(f"precision must be one of "
+                             f"{self.PRECISION_KNOBS}, got {precision!r}")
         if residency != "in_memory" or budget_bytes is not None or \
                 disk_dir is not None or pager_policy != "pin":
             raise _not_ported("residency", residency, "N4 (pager)")
@@ -96,13 +110,40 @@ class RelationalEngine:
         if shards not in (None, 0, 1):
             raise _not_ported("shards", shards, "N7 (shards)")
         self.device = resolve_device(device)
+        self._chunk_mode = "off"
+        if chunk_size == "auto":
+            from repro_torch.planner.calibrate import choose_base_chunk_size
+            if row2col == "off":
+                raise ValueError("chunk_size='auto' needs the layout "
+                                 "planner (row2col 'auto' or 'col')")
+            chunk_size = choose_base_chunk_size(
+                spec, cache_len=max_len, candidates=chunk_candidates,
+                params=cost_params)
+            self._chunk_mode = "auto"
         self.spec = spec
-        self.cs = chunk_size
+        self.cs = int(chunk_size)
         self.max_len = max_len
         # zero-cost when None: every site guards with `is not None`
         self.metrics = metrics
-        # the paged residency budget (N4); in-memory residency is unbounded
+        self.row2col = row2col
+        self.precision = precision
+        self._precision_mode = "off" if precision == "f32" else precision
+        self._table_precisions = dict(table_precisions or {})
+        self._chunk_candidates = chunk_candidates
+        self._cost_params = cost_params
+        # the paged residency budget (N4); in-memory residency is
+        # unbounded.  One ResidencyPool is shared by the decode and every
+        # prefill and batched plan: a column table one plan committed is
+        # free for the others, and its chunk size and precision are pinned
         self._residency_budget = None
+        self._residency_pool = ResidencyPool(self._residency_budget)
+        # planner-chosen per-table chunk sizes, pinned for later plans
+        self._table_chunks: Dict[str, int] = {}
+        # quantised-payload byte accounting for the metrics gauge (dedup
+        # across the plans sharing q-tables)
+        self._quant_bytes = 0
+        self._quant_counted: set = set()
+        self.replans = 0
         # prefill plans, keyed by (prompt length, suffix?): a suffix plan
         # takes the prefix boundary as the runtime :cache_position (the
         # append offset and the causal mask), so one plan per suffix
@@ -112,18 +153,78 @@ class RelationalEngine:
         # powers of two: sessions join/leave the batch without replanning
         self._batched_pipes: Dict[int, object] = {}
         self.decode_pipe = self._compile_pipe(
-            lg.build_decode_graph(spec, cache_len=max_len))
+            lg.build_decode_graph(spec, cache_len=max_len),
+            cache_mode=cache_layout)
+        self._table_chunks.update(self.decode_pipe.table_chunks)
+        # resolved decode-time cache layout; prefill and batched plans are
+        # forced to it (they share the session environments and the slot
+        # pool with decode steps).  With the knob "off" the planner stays
+        # off for their caches too and they keep the seed order.
+        plan = self.decode_pipe.layout_plan
+        self.cache_layout = (plan.cache_decisions[0].layout
+                             if plan is not None and plan.cache_decisions
+                             else "row_chunk")
+        self._prefill_cache_mode = ("off" if cache_layout == "off"
+                                    else self.cache_layout)
         self.env_base = lg.convert_weights(params, chunk_size=self.cs,
                                            device=self.device)
+        self._register_layouts(self.decode_pipe)
+        # the gate builds a full f32 reference engine (a second weight copy
+        # and compile): an opt-in construction cost, skipped when the plan
+        # quantised nothing
+        if accuracy_budget is not None and self._precision_mode != "off" \
+                and self.table_precision_choices:
+            from repro_torch.quant.gate import check_accuracy
+            ref = RelationalEngine(
+                spec, params, chunk_size=self.cs, max_len=max_len,
+                row2col=row2col, cache_layout=cache_layout,
+                cost_params=cost_params, precision="f32",
+                device=self.device)
+            check_accuracy(self, ref, tolerance=accuracy_budget)
 
-    def _compile_pipe(self, g):
-        """Shared graph → pipeline compile path for every pipeline the
-        engine builds (decode, prefill, batched decode)."""
+    def _compile_pipe(self, g, cache_mode: str):
+        """Shared graph → planned-pipeline compile path.  Every pipeline
+        the engine builds (decode, prefill, batched decode) comes through
+        here so they plan under identical knobs: the shared residency
+        pool, and (``chunk_size="auto"``) the decode plan's per-table chunk
+        sizes pinned for every later plan.  Only the graph and the cache
+        mode (the seed decode plan resolves the knob; later plans are
+        forced to its choice) differ per call site."""
         infer_shapes(g)
         preoptimize(g)
         pipe = op_map(g, chunk_size=self.cs)
-        postoptimize(pipe)
+        postoptimize(pipe, layout_mode=self.row2col,
+                     cache_mode=cache_mode,
+                     cost_params=self._cost_params,
+                     chunk_mode=self._chunk_mode,
+                     chunk_candidates=self._chunk_candidates,
+                     table_chunks=(dict(self._table_chunks)
+                                   if self._chunk_mode != "off" and
+                                   self._table_chunks else None),
+                     pool=self._residency_pool,
+                     precision_mode=self._precision_mode,
+                     table_precisions=self._table_precisions or None)
         return pipe
+
+    def _register_layouts(self, pipe) -> None:
+        """Build a pipeline's planned tables into the resident weights
+        once (column twins, re-chunked row tables, quantised twins, on the
+        device: ``LayoutPlan.ensure_env``), record its per-table chunk
+        sizes, and count its quantised bytes for the metrics gauge."""
+        self._table_chunks.update(getattr(pipe, "table_chunks", {}) or {})
+        plan = getattr(pipe, "layout_plan", None)
+        if plan is None:
+            return
+        if self.metrics is not None and plan.precision_decisions:
+            for pd in plan.precision_decisions:
+                if pd.q_table not in self._quant_counted:
+                    self._quant_counted.add(pd.q_table)
+                    self._quant_bytes += pd.q_bytes
+            self.metrics.gauge(
+                "engine_quantised_resident_bytes",
+                "stored bytes of quantised weight tables").set(
+                    self._quant_bytes)
+        plan.ensure_env(self.env_base)
 
     def _plan_cache_event(self, cache: str, hit: bool) -> None:
         if self.metrics is not None:
@@ -136,9 +237,12 @@ class RelationalEngine:
         key = (T, suffix)
         self._plan_cache_event("prefill", key in self._prefill_pipes)
         if key not in self._prefill_pipes:
-            self._prefill_pipes[key] = self._compile_pipe(
+            pipe = self._compile_pipe(
                 lg.build_prefill_graph(self.spec, T, cache_len=self.max_len,
-                                       suffix=suffix))
+                                       suffix=suffix),
+                cache_mode=self._prefill_cache_mode)
+            self._register_layouts(pipe)
+            self._prefill_pipes[key] = pipe
         return self._prefill_pipes[key]
 
     def _batched_decode_pipe(self, batch: int):
@@ -146,9 +250,12 @@ class RelationalEngine:
         that advances ``batch`` sequences in ONE ``run_pipeline`` call."""
         self._plan_cache_event("batched_decode", batch in self._batched_pipes)
         if batch not in self._batched_pipes:
-            self._batched_pipes[batch] = self._compile_pipe(
+            pipe = self._compile_pipe(
                 lg.build_decode_graph(self.spec, cache_len=self.max_len,
-                                      batch=batch))
+                                      batch=batch),
+                cache_mode=self._prefill_cache_mode)
+            self._register_layouts(pipe)
+            self._batched_pipes[batch] = pipe
         return self._batched_pipes[batch]
 
     @staticmethod
@@ -163,6 +270,7 @@ class RelationalEngine:
         env = dict(self.env_base)
         env.update(lg.empty_cache_tables(self.spec, cache_len=self.max_len,
                                          chunk_size=self.cs,
+                                         layout=self.cache_layout,
                                          device=self.device))
         return env
 
@@ -170,6 +278,42 @@ class RelationalEngine:
         """Final-position logits row (un-padded vocab), copied to the host."""
         v = out_table.cols["v"]
         return v.reshape(v.shape[0], -1)[-1, : self.spec.vocab].cpu().numpy()
+
+    @property
+    def table_precision_choices(self) -> Dict[str, str]:
+        """Planner-chosen payload precision per stored weight table (the
+        decode plan's decisions; tables absent here store f32)."""
+        plan = getattr(self.decode_pipe, "layout_plan", None)
+        if plan is None:
+            return {}
+        return {d.table: d.precision for d in plan.precision_decisions}
+
+    def replan(self, cost_params) -> None:
+        """Re-run physical planning under new cost weights and drop the
+        compiled plan caches.  Call between scheduler ticks only.  What
+        live sessions depend on stays pinned: the cache layout (the
+        recompile is forced to the resolved layout), the per-table chunk
+        sizes (``self._table_chunks`` and the shared pool) and the payload
+        precisions (the pool pins every decided table), so the tokens do
+        not change; only access paths (row or column) may."""
+        from repro_torch.obs.log import log_event
+        self._cost_params = cost_params
+        for t, p in self.table_precision_choices.items():
+            self._table_precisions.setdefault(t, p)
+        pipe = self._compile_pipe(
+            lg.build_decode_graph(self.spec, cache_len=self.max_len),
+            cache_mode=self._prefill_cache_mode)
+        self._register_layouts(pipe)
+        self.decode_pipe = pipe
+        self._prefill_pipes.clear()
+        self._batched_pipes.clear()
+        self.replans += 1
+        if self.metrics is not None:
+            self.metrics.counter(
+                "engine_replans_total",
+                "mid-flight re-planning events (drift watchdog)").inc()
+        log_event("engine_replan", replans=self.replans,
+                  group_weight=getattr(cost_params, "group_weight", None))
 
     # -- incremental session API ---------------------------------------------
 
@@ -225,6 +369,10 @@ class RelationalEngine:
         logits = self._final_logits(outs["logits"])
         return {"env": env, "pos": len(prompt),
                 "tok": int(np.argmax(logits)), "logits": logits}
+
+    def prefill_logits(self, prompt: List[int]) -> np.ndarray:
+        """Final-position prefill logits (the accuracy gate's probe)."""
+        return self.start_session(list(prompt))["logits"]
 
     def session_step(self, sess) -> int:
         """One KV-cached decode step (the §3.4 compact queries)."""
@@ -314,7 +462,8 @@ class BatchedDecoder:
                              f"got {prefix_bind!r}")
         self.engine = engine
         self.pool = BatchedCacheTables(engine.spec, max_seqs, engine.max_len,
-                                       engine.cs, device=engine.device)
+                                       engine.cs, layout=engine.cache_layout,
+                                       device=engine.device)
         # content-hash prefix cache over completed prefills; prefill_ex
         # consults it, plain prefill() stays the cold path
         if prefix_cache_bytes is None:

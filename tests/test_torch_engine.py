@@ -2,9 +2,10 @@
 
 ``RelationalEngine.generate``, ``BatchedDecoder`` and a preempting
 ``ContinuousBatcher`` run over the same numpy weights in both packages and
-must produce identical tokens; prefill logits agree within 1e-5.  The JAX
-engine runs unplanned (``row2col="off"``, ``cache_layout="off"``), the
-configuration the port implements.
+must produce identical tokens; prefill logits agree within 1e-5.  Both
+engines take the reference's defaults, so every pipeline is planned
+(``row2col="auto"``, ``cache_layout="auto"``); the planner's other knobs
+are held to the JAX engine's one by one.
 """
 
 import numpy as np
@@ -35,8 +36,7 @@ PARAMS = init_llama_params(J_SPEC, seed=0)
 
 
 def _engines(cs=8, max_len=32):
-    return (JEngine(J_SPEC, PARAMS, chunk_size=cs, max_len=max_len,
-                    row2col="off", cache_layout="off"),
+    return (JEngine(J_SPEC, PARAMS, chunk_size=cs, max_len=max_len),
             RelationalEngine(T_SPEC, PARAMS, chunk_size=cs, max_len=max_len,
                              device="cpu"))
 
@@ -120,16 +120,121 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(row2col="auto"), dict(cache_layout="head_major"),
-    dict(chunk_size="auto"), dict(cost_params=object()),
-    dict(precision="int8"), dict(residency="paged"),
-    dict(accuracy_budget=0.1), dict(table_precisions={"lm_head": "int8"}),
-    dict(tracer=object()), dict(shards=2)])
+    dict(residency="paged"), dict(tracer=object()), dict(shards=2)])
 def test_unported_knobs_raise(knob):
     kwargs = dict(chunk_size=8, max_len=16, device="cpu")
     kwargs.update(knob)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         RelationalEngine(T_SPEC, PARAMS, **kwargs)
+
+
+COST = dict(row_weight=1.0, group_weight=0.05, seek_weight=2.0)
+PLANNED_KNOBS = {
+    "row2col": dict(row2col="col"),
+    "cache_layout": dict(cache_layout="head_major", row2col="off"),
+    "chunk_size": dict(chunk_size="auto", chunk_candidates=(4, 8, 16)),
+    "cost_params": dict(cost_params=COST),
+    "precision": dict(precision="int8"),
+    "accuracy_budget": dict(precision="nf4", accuracy_budget=2.0),
+    "table_precisions": dict(precision="auto",
+                             table_precisions={"lm_head": "int8"}),
+}
+
+
+@pytest.mark.parametrize("knob", PLANNED_KNOBS.values(),
+                         ids=list(PLANNED_KNOBS))
+def test_planned_knobs_match_jax(knob):
+    """Each planner knob the reference takes, through both engines: the
+    same plan decisions, payload choices and resolved cache layout,
+    prefill logits within 1e-5 and identical tokens, single-sequence and
+    batched, with every matmul on K1."""
+    from repro.planner import CostParams as JCost
+    from repro_torch.planner import CostParams as TCost
+    kw = dict(dict(chunk_size=8, max_len=24), **knob)
+    jkw, tkw = dict(kw), dict(kw, device="cpu")
+    if "cost_params" in kw:
+        jkw["cost_params"], tkw["cost_params"] = JCost(**COST), TCost(**COST)
+    je, te = JEngine(J_SPEC, PARAMS, **jkw), RelationalEngine(T_SPEC, PARAMS,
+                                                               **tkw)
+    assert (te.cs, te.cache_layout) == (je.cs, je.cache_layout)
+    assert te.table_precision_choices == je.table_precision_choices
+    jplan, tplan = je.decode_pipe.layout_plan, te.decode_pipe.layout_plan
+    assert [(d.table, d.layout, d.physical_chunk) for d in tplan.decisions] \
+        == [(d.table, d.layout, d.physical_chunk) for d in jplan.decisions]
+    prompt = [3, 17, 42, 5, 9, 60]
+    np.testing.assert_allclose(te.prefill_logits(prompt),
+                               je.prefill_logits(prompt), rtol=1e-5,
+                               atol=1e-5)
+    calls = chunked_matmul.calls
+    assert te.generate(prompt, 5).tokens == je.generate(prompt, 5).tokens
+    assert chunked_matmul.calls - calls == 5 * (7 * SPEC_ARGS["n_layers"] + 1)
+    jd, td = je.batched_decoder(2), te.batched_decoder(2)
+    jlast = [jd.prefill([1, 2, 3], 0), jd.prefill([4, 5], 1)]
+    tlast = [td.prefill([1, 2, 3], 0), td.prefill([4, 5], 1)]
+    assert tlast == jlast
+    for _ in range(3):
+        jlast, tlast = jd.decode([0, 1], jlast), td.decode([0, 1], tlast)
+        assert tlast == jlast
+    assert td.pool.tables["k_cache_L0"].key_names == \
+        jd.pool.tables["k_cache_L0"].key_names
+
+
+def test_default_engine_is_planned_as_jax():
+    """The reference's defaults, ``row2col="auto"`` and
+    ``cache_layout="auto"``: the same resolved layouts in both engines, and
+    session caches, slot pools and prefill plans in that one layout."""
+    je, te = _engines()
+    assert te.row2col == je.row2col == "auto"
+    assert te.cache_layout == je.cache_layout
+    assert te.decode_pipe.layout_plan.col_decisions
+    sess = te.start_session([1, 2, 3])
+    pool = te.batched_decoder(2).pool
+    for name in ("k_cache_L0", "v_cache_L1"):
+        order = te.decode_pipe.layout_plan.cache_decisions[0].key_order
+        assert sess["env"][name].key_names == order
+        assert pool.tables[name].key_names == ("seq",) + order
+    prefill = te._prefill_pipe(3).layout_plan
+    assert {d.layout for d in prefill.cache_decisions} == {te.cache_layout}
+
+
+def test_replan_between_ticks_keeps_tokens():
+    """``replan`` under other cost weights between two decode ticks: the
+    cache layout, chunk sizes and precisions stay pinned, so the batched
+    decoder goes on with the JAX decoder's tokens."""
+    from repro_torch.planner import CostParams
+    je, te = _engines()
+    jd, td = je.batched_decoder(2, prefix_block=0), te.batched_decoder(2)
+    last = [jd.prefill([1, 2, 3], 0), jd.prefill([4, 5, 6, 7], 1)]
+    assert [td.prefill([1, 2, 3], 0), td.prefill([4, 5, 6, 7], 1)] == last
+    layout = te.cache_layout
+    for step in range(4):
+        if step == 2:
+            te.replan(CostParams(group_weight=10.0))
+            assert te.replans == 1 and te.cache_layout == layout
+        want = jd.decode([0, 1], last)
+        assert td.decode([0, 1], last) == want
+        last = want
+
+
+def test_prefill_logits_match_jax():
+    je, te = _engines()
+    for prompt in ([5], [3, 17, 42, 5, 9, 60, 1, 2]):
+        np.testing.assert_allclose(te.prefill_logits(prompt),
+                                   je.prefill_logits(prompt), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(row2col="yes"), dict(cache_layout="col_major"),
+    dict(precision="fp8")])
+def test_bad_knob_values_raise_value_error(knob):
+    """The reference asserts on a knob value outside its vocabulary; the
+    port raises ``ValueError`` naming the choices."""
+    with pytest.raises(ValueError, match="must be one of"):
+        RelationalEngine(T_SPEC, PARAMS, chunk_size=8, max_len=16,
+                         device="cpu", **knob)
+    with pytest.raises(AssertionError):
+        JEngine(J_SPEC, PARAMS, chunk_size=8, max_len=16, **knob)
 
 
 def test_prefix_block_16_serves():

@@ -493,3 +493,87 @@ def test_segments_stay_bit_unchanged_on_the_card(cuda, mode):
         hot.free(2)
         torch.cuda.synchronize()
         assert all(torch.equal(t, c) for t, c in snap)
+
+
+# ---------------------------------------------------------------------------
+# the planner's layouts on the card: K1's column layouts, K2/K3 over every
+# cache order, the codecs' codes
+# ---------------------------------------------------------------------------
+
+# (H, K, Nh): COLH Q, o, W1/W3 at Llama-3-8B widths; ragged small ones
+COL_SHAPES = [(32, 4096, 128), (1, 4096, 4096), (1, 4096, 14336),
+              (3, 100, 24), (1, 64, 40), (2, 300, 72)]
+
+
+@pytest.mark.parametrize("H,K,Nh", COL_SHAPES)
+@pytest.mark.parametrize("m", MS)
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_column_kernel_matches_plain(cuda, m, H, K, Nh, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(m * H + Nh)
+    dt = getattr(torch, dtype)
+    x = torch.randn(m, K, generator=gen, device=cuda).to(dt)
+    w = (torch.randn(H, K, Nh, generator=gen, device=cuda)
+         / K ** 0.5).to(dt)
+    launches = chunked_matmul.launches
+    got = chunked_matmul(x, w, layout="col")
+    torch.cuda.synchronize()
+    assert chunked_matmul.launches == launches + 1
+    torch.testing.assert_close(got.float(),
+                               ref.chunked_matmul(x, w, "col").float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_column_kernel_scalar_path_and_repeats(cuda, m):
+    """Blocks at strides off 16 bytes take the scalar path; every launch
+    on the same inputs gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    wide = torch.randn(3, 257, 41, generator=gen, device=cuda)
+    w = wide[:, 1:, 1:]                      # [3, 256, 40], odd strides
+    x = torch.randn(m, 256, generator=gen, device=cuda)
+    got = chunked_matmul(x, w, layout="col")
+    torch.testing.assert_close(got, ref.chunked_matmul(x, w, "col"),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, chunked_matmul(x, w, layout="col"))
+
+
+@pytest.mark.parametrize("layout", ["row_chunk", "head_major", "pos_major"])
+def test_planned_engine_on_the_card_matches_the_cpu(cuda, layout):
+    """``row2col="col"`` and each cache layout: prefill logits within 1e-4
+    of the port on the CPU, the same tokens single and batched, and every
+    matmul and attention subplan launched on its kernel."""
+    spec = LlamaSpec(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv=2,
+                     d_ff=64, rope_theta=10000.0)
+    params = init_llama_params(spec, seed=0)
+    cpu, gpu = (RelationalEngine(spec, params, chunk_size=8, max_len=32,
+                                 row2col="col", cache_layout=layout,
+                                 device=d) for d in ("cpu", cuda))
+    prompt = [3, 17, 42, 5]
+    k1, k3 = chunked_matmul.launches, flash_attention.launches
+    np.testing.assert_allclose(gpu.prefill_logits(prompt),
+                               cpu.prefill_logits(prompt), rtol=1e-4,
+                               atol=1e-4)
+    assert (chunked_matmul.launches - k1, flash_attention.launches - k3) \
+        == (7 * spec.n_layers + 1, spec.n_layers)
+    k2 = paged_attention.launches
+    assert gpu.generate(prompt, 5).tokens == cpu.generate(prompt, 5).tokens
+    assert paged_attention.launches == k2 + 4 * spec.n_layers
+    decs = [e.batched_decoder(2) for e in (cpu, gpu)]
+    last = [[d.prefill([1, 2, 3], 0), d.prefill([9, 8], 1)] for d in decs]
+    assert last[0] == last[1]
+    for _ in range(3):
+        last = [d.decode([0, 1], t) for d, t in zip(decs, last)]
+        assert last[0] == last[1]
+
+
+@pytest.mark.parametrize("name", ["int8", "nf4"])
+def test_codes_on_the_card_match_the_cpu(cuda, name):
+    """Quantised on the card, the codes and scales of a Llama-3-8B-wide
+    table equal those computed on the CPU: no mismatch at all."""
+    from repro_torch.quant.codecs import CODECS
+    gen = torch.Generator().manual_seed(5)
+    data = torch.randn(4096, 64, 64, generator=gen) * 0.02
+    cc, cs = CODECS[name].quantise(data)
+    gc, gs = CODECS[name].quantise(data.to(cuda))
+    assert int((gc.cpu() != cc).sum()) == 0
+    assert torch.equal(gs.cpu(), cs)

@@ -412,3 +412,80 @@ def test_split_model_skips_an_unmapped_page():
                                 interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the planner's layouts: K1 over column tables, K2/K3 over each cache order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("H,K,Nh,M", [(1, 40, 24, 3), (4, 32, 8, 5),
+                                      (1, 7, 5, 1), (3, 16, 32, 33)])
+def test_plain_column_layouts_equal_the_row_layout(H, K, Nh, M):
+    """A COL_CHUNK (H = 1) or COL_CHUNK_HEADS table is the row weight
+    transposed per head: the plain K1 in the column layout gives X·Wᵀ."""
+    rng = np.random.default_rng(H * K + Nh)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((H * Nh, K)).astype(np.float32))
+    w_col = w.reshape(H, Nh, K).transpose(1, 2).contiguous()
+    calls = chunked_matmul.calls
+    got = chunked_matmul(x, w_col, layout="col")
+    assert chunked_matmul.calls == calls + 1
+    torch.testing.assert_close(got, ref.chunked_matmul(x, w), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 8), (8, 4), {"layout": "col"}),          # col needs a 3-D w
+    ((2, 8), (1, 4, 8), {"layout": "col"}),       # K mismatch
+    ((2, 8), (4, 8), {"layout": "nn"}),           # unknown layout
+    ((2, 8), (1, 8, 4), {}),                      # row needs a 2-D w
+])
+def test_column_layout_rejects(case):
+    xs, ws, kw = case
+    with pytest.raises(ValueError):
+        chunked_matmul(torch.ones(xs), torch.ones(ws), **kw)
+
+
+def _cache_views(order, data):
+    """``data`` [(B,) S, Hkv, nc, cs] stored in a planner key order and
+    viewed back as the executor views it: the K2 pool (one page a
+    sequence outside the row order) and K3's heads-first rows."""
+    from repro_torch.core.executor import DenseTable, permute_table_keys
+    from repro_torch.core.relational import VEC
+    B, S, Hkv, nc, cs = data.shape
+    keys = (("seq", B), ("tp", S), ("hk", Hkv), ("c", nc))
+    t = DenseTable(keys=keys, cols={"kv": data}, col_types={"kv": VEC(cs)})
+    stored = permute_table_keys(t, ("seq",) + order)
+    stored.cols["kv"] = stored.cols["kv"].contiguous()
+    seen = permute_table_keys(stored, ("seq", "tp", "hk", "c")).cols["kv"]
+    return seen.reshape(B, S, Hkv, nc * cs)
+
+
+@pytest.mark.parametrize("order", [("tp", "hk", "c"), ("hk", "tp", "c"),
+                                   ("tp", "c", "hk")])
+def test_plain_attention_over_every_cache_order(order):
+    """K2 and K3's plain versions over caches stored head_major or
+    pos_major (viewed, or gathered, back into rows) equal the row-order
+    result."""
+    rng = np.random.default_rng(len(order[0]))
+    B, S, Hkv, nc, cs, H = 2, 12, 2, 2, 4, 4
+    k = torch.from_numpy(rng.standard_normal((B, S, Hkv, nc, cs)).astype(
+        np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, S, Hkv, nc, cs)).astype(
+        np.float32))
+    q = torch.from_numpy(rng.standard_normal((B, H, nc * cs)).astype(
+        np.float32))
+    rows_k, rows_v = k.reshape(B, S, Hkv, -1), v.reshape(B, S, Hkv, -1)
+    vk, vv = _cache_views(order, k), _cache_views(order, v)
+    lengths = torch.tensor([5, 12])
+    pt = torch.arange(B).reshape(B, 1)
+    want = paged_attention(q, rows_k, rows_v, pt, lengths)
+    torch.testing.assert_close(paged_attention(q, vk, vv, pt, lengths), want)
+    qf = torch.from_numpy(rng.standard_normal((1, H, 3, nc * cs)).astype(
+        np.float32))
+    want = flash_attention(qf, rows_k[:1].transpose(1, 2),
+                           rows_v[:1].transpose(1, 2), q_offset=4)
+    torch.testing.assert_close(
+        flash_attention(qf, vk[:1].transpose(1, 2), vv[:1].transpose(1, 2),
+                        q_offset=4), want)

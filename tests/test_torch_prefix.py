@@ -2,8 +2,9 @@
 JAX package's.
 
 Both packages run the same numpy weights (the port on the CPU, where
-``flash_attention`` and ``paged_attention`` take their plain versions; the
-JAX engine unplanned, the configuration the port implements).  A
+``flash_attention`` and ``paged_attention`` take their plain versions),
+both engines with the reference's defaults: planned (``row2col="auto"``,
+``cache_layout="auto"``), so caches and segments are ``head_major``.  A
 prefix-hit decoder must generate exactly the tokens of the JAX package's
 prefix-hit decoder and of a cold decoder, suffix-session logits agree
 within 1e-5, and every segment tensor stays bit-unchanged while sequences
@@ -56,7 +57,7 @@ def _engines(cs=8, max_len=24):
     if key not in _ENGINES:
         _ENGINES[key] = (
             JEngine(JSpec(**SPEC_ARGS), PARAMS, chunk_size=cs,
-                    max_len=max_len, row2col="off", cache_layout="off"),
+                    max_len=max_len),
             RelationalEngine(LlamaSpec(**SPEC_ARGS), PARAMS, chunk_size=cs,
                              max_len=max_len, device="cpu"))
     return _ENGINES[key]
@@ -266,7 +267,8 @@ def test_batched_cache_pool_roundtrip():
     resets the position; a refill overwrites the slot."""
     _, te = _engines()
     pool = BatchedCacheTables(te.spec, max_seqs=3, cache_len=te.max_len,
-                              chunk_size=8, device="cpu")
+                              chunk_size=8, layout=te.cache_layout,
+                              device="cpu")
     name = next(iter(pool.tables))
     cn = next(iter(pool.tables[name].cols))
     sess = te.start_session([5, 9, 2])
@@ -304,14 +306,17 @@ def test_share_splice_matches_jax():
         tables = {k: v for k, v in seg_env.items()
                   if k.startswith(("k_cache", "v_cache"))}
         sess = eng.start_suffix_session(prompt, len(PREFIX), tables)
-        pool = Pool(eng.spec, 3, eng.max_len, 8, **kw)
+        pool = Pool(eng.spec, 3, eng.max_len, 8, layout=eng.cache_layout,
+                    **kw)
         pool.write_suffix(1, sess["env"], len(prompt), len(PREFIX))
         pool.bind_segment(1, Segment(tuple(PREFIX), tables, 0), len(PREFIX))
         views.append(pool.gather_views([1, 0, 1]))
         if eng is te:
             name = "k_cache_L0"
             snap = tables[name].cols["kv"].clone()
-            assert not pool.tables[name].cols["kv"][1, :len(PREFIX)].any()
+            pax = pool.tables[name].key_names.index("tp") - 1
+            assert not pool.tables[name].cols["kv"][1].movedim(
+                pax, 0)[:len(PREFIX)].any()
             assert torch.equal(tables[name].cols["kv"], snap)
             assert torch.equal(views[-1][name].cols["kv"][0],
                                sess["env"][name].cols["kv"])
@@ -527,7 +532,7 @@ def test_prefix_serving_metrics_match_jax():
                           max_len=32, device="cpu",
                           metrics=MetricsRegistry())
     jeng = JEngine(JSpec(**SPEC_ARGS), PARAMS, chunk_size=8, max_len=32,
-                   row2col="off", cache_layout="off", metrics=JRegistry())
+                   metrics=JRegistry())
     want, jsched, jdec = _serve_prefix_traffic(
         jeng, JPaged, JPagedCfg, JBatcher, JRequest, jeng.metrics)
     got, tsched, tdec = _serve_prefix_traffic(
