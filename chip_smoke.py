@@ -6,38 +6,47 @@
 Needs one CUDA card (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit's ``nvcc``.  It builds every hand-written kernel from the sources in
 this checkout, holds each against its plain PyTorch version on the card
-(K1 also in the planner's column layouts, K2 and K3 also over head_major
-and pos_major caches, K3 also with the suffix prefill's causal offset),
-runs the engine at Llama-3-8B width on the card against the same engine
-on the CPU (depth 2: the reference's planned defaults with a batched
-decoder and a suffix session over a cached prefix, the column layouts
-under every forced cache layout, int8 and nf4 payloads through the
-accuracy gate, the planner's chunk size, and the unplanned engine), then
-serves at full width and depth under the reference's defaults
-(``row2col="auto"``, ``cache_layout="auto"``) through
+(K1 also in the planner's column layouts and at one shard's strided
+slices, K2 and K3 also over head_major and pos_major caches, K3 also with
+the suffix prefill's causal offset), runs the engine at Llama-3-8B width
+on the card against the same engine on the CPU (depth 2: the reference's
+planned defaults with a batched decoder and a suffix session over a
+cached prefix, the column layouts under every forced cache layout, int8
+and nf4 payloads through the accuracy gate, the planner's chunk size, the
+unplanned engine, paged residency under a budget in pinned host memory
+and on disk, ``precision="auto"`` under it, and 2 and 4 shards in memory
+and paged), then serves at full width and depth under the reference's
+defaults (``row2col="auto"``, ``cache_layout="auto"``) through
 ``ContinuousBatcher`` → ``BatchedDecoder`` → ``RelationalEngine``: a few
-cold requests (phase 5), then chatbot traffic over a 448-token shared
-prefix through the prefix cache in both bind modes with a metrics
-registry attached (phase 6).  Each serving run checks that every GEMM went
-through K1 ``chunked_matmul``, every decode attention (and one-token
-suffix) through K2 ``paged_attention`` and every prefill attention (cold,
-or a suffix over a cached prefix) through K3 ``flash_attention``; phase 6
-also checks the hits, the metrics and the tokens against a decoder
-without the cache.  Any failure exits non-zero.  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels
-with their launches, errors and times (the per-shape times are printed in
-phase 3), and rows for K1's column layouts and K2/K3 over the planned
-cache layout.
+cold requests (phase 5), chatbot traffic over a 448-token shared prefix
+through the prefix cache in both bind modes with a metrics registry
+attached (phase 6), the cold requests again with the weight tables paged
+from pinned host memory through a 16 GiB working set (phase 7), and again
+with 2 shards (phase 8).  Each serving run checks that every GEMM went
+through K1 ``chunked_matmul`` (once a shard at a sharded site), every
+decode attention (and one-token suffix) through K2 ``paged_attention``
+and every prefill attention (cold, or a suffix over a cached prefix)
+through K3 ``flash_attention``; phase 6 also checks the hits, the metrics
+and the tokens against a decoder without the cache; phases 7 and 8 hold
+one fixed prompt's logits to phase 5's.  Any failure exits non-zero.  The
+last line is ``{"ok": true, "device": {...}}``; the line before it lists
+the kernels with their launches, errors and times (the per-shape times
+are printed in phase 3), and rows for K1's column layouts and shard
+slices and K2/K3 over the planned cache layout.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import importlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -100,6 +109,8 @@ PAGED_SWEEP = [[5, 17, 32], [1, 1, 1], [32, 8, 24]]
 FLASH_SWEEP = [(32, 32, 16, True), (64, 64, 32, True), (32, 64, 16, False),
                (128, 128, 64, True)]
 KERNELS = ("chunked_matmul", "paged_attention", "flash_attention")
+# phase 4's disk cold stores (build/ is gitignored)
+COLD_DIR = ROOT / "build" / "pager_cold"
 # the TPU kernel each replaces (the function reaching pl.pallas_call)
 REPLACES = {"chunked_matmul": "src/repro/kernels/chunked_matmul.py:42",
             "paged_attention": "src/repro/kernels/paged_attention.py:80",
@@ -114,6 +125,30 @@ COL_SITES = {"Q (COLH)": (32, 4096, 128), "o": (1, 4096, 4096),
 COL_COUNTS = {"Q (COLH)": N_LAYERS, "o": N_LAYERS, "W1/W3": 2 * N_LAYERS,
               "lm_head": 1}
 COL_M = (1, 4, 64)
+# K1 at one shard's slices (the planner shards every one of the 225 matmul
+# sites at Llama-3-8B widths): row-parallel sites (K, V, W2 row
+# tables) slice the reduction key, so a shard's x and W are [*, K/N] views
+# at the full K's row stride; column-parallel sites (o, W1/W3, lm_head
+# COL_CHUNK) slice the output chunks, [K, Nh/N] views at the full Nh's
+# stride; head-parallel Q (COL_CHUNK_HEADS) takes H/N whole head blocks.
+# label: (layout, weight shape, launches a decode step)
+SHARD_SITES = {"K/V row": ("row", (1024, 4096), 2 * N_LAYERS),
+               "W2 row": ("row", (4096, 14336), N_LAYERS),
+               "o col": ("col", (1, 4096, 4096), N_LAYERS),
+               "W1/W3 col": ("col", (1, 4096, 14336), 2 * N_LAYERS),
+               "lm_head col": ("col", (1, 4096, 128256), 1),
+               "Q colh": ("colh", (32, 4096, 128), N_LAYERS)}
+SHARD_NS, SHARD_M = (2, 4), (1, 64)
+# phase 4's budget for its paged cases: below the depth-2 decode plan's
+# working set (about 6 GB: the vocabulary and lm_head tables, 2.1 GB
+# each, and two layers); phase 7's, against a 32-layer decode step's 30.0
+# GB of GEMM weights and the 2.1 GB vocabulary table
+PHASE4_BUDGET, PAGED_BUDGET = 2 << 30, 16 << 30
+# phase 7 keeps this much host memory free beside its pinned cold store
+HOST_MARGIN = 8 << 30
+# phases 5, 7 and 8: the fixed prompt whose prefill and 4 decode steps are
+# compared across engines
+FIXED_PROMPT_SEED, FIXED_STEPS = 7, 4
 
 
 def log(msg: str = "") -> None:
@@ -514,6 +549,107 @@ def phase_col_kernels(flush):
     return steps, max_err
 
 
+def _shard_slices(layout, w, x, n):
+    """The N shards' (x, w) views of one site, as the shard workers launch
+    them: row sites slice the reduction key of both (K/N columns at the full
+    row stride), col sites the output columns of W, colh sites W's head
+    blocks."""
+    if layout == "row":
+        k = w.shape[1] // n
+        return [(x[:, s * k:(s + 1) * k], w[:, s * k:(s + 1) * k])
+                for s in range(n)]
+    if layout == "col":
+        c = w.shape[2] // n
+        return [(x, w[:, :, s * c:(s + 1) * c]) for s in range(n)]
+    h = w.shape[0] // n
+    return [(x, w[s * h:(s + 1) * h]) for s in range(n)]
+
+
+def phase_shard_kernels(flush):
+    """K1 at one shard's shapes for N = 2 and 4: every shard's launch held
+    against its plain version, shard 0's timed on the strided views the
+    workers pass and on a contiguous copy of the same slice (what the
+    wider row stride costs), beside ``torch.matmul`` on the views and the
+    bytes bound, at decode M = 1 and prefill M = 64."""
+    from repro_torch.kernels import chunked_matmul, ref
+    log("== phase 3: K1 chunked_matmul at one shard's strided slices against "
+        "its plain version")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    max_err, rows = 0.0, []
+    for label, (layout, shape, _) in SHARD_SITES.items():
+        K = shape[1]
+        w = torch.randn(*shape, generator=gen, device=dev).mul_(K ** -0.5)
+        kw = {} if layout == "row" else {"layout": "col"}
+        for n in SHARD_NS:
+            for m in SHARD_M:
+                x = torch.randn(m, K, generator=gen, device=dev)
+                shards = _shard_slices(layout, w, x, n)
+                for xs, ws in shards:
+                    got = chunked_matmul(xs, ws, **kw)
+                    want = ref.chunked_matmul(xs, ws, layout if layout ==
+                                              "row" else "col")
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, rtol=1e-4,
+                                               atol=1e-4)
+                    err = (got - want).abs().max().item()
+                    max_err = max(max_err, err)
+                xs, ws = shards[0]
+                wc = ws.contiguous()
+                ks = xs.shape[1]
+                ns = ws.shape[0] if layout == "row" else ws.shape[0] * \
+                    ws.shape[2]
+                bound, by = _bound(4 * (m * ks + ns * ks + m * ns),
+                                   2 * m * ns * ks)
+                lib = ((lambda: torch.matmul(xs, ws.T)) if layout == "row"
+                       else (lambda: torch.matmul(xs, ws)))
+                row = {
+                    "site": label, "N": n, "M": m, "K": ks, "out": ns,
+                    "w_row_stride": ws.stride(-2),
+                    "kernel_ms": time_ms(
+                        lambda: chunked_matmul(xs, ws, **kw), flush),
+                    "contiguous_ms": time_ms(
+                        lambda: chunked_matmul(xs, wc, **kw), flush),
+                    "plain_ms": time_ms(
+                        lambda: ref.chunked_matmul(
+                            xs, ws, "row" if layout == "row" else "col"),
+                        flush),
+                    "library_ms": time_ms(lib, flush),
+                    "bound_ms": bound, "bound_by": by}
+                rows.append(row)
+                log(f"  {label:11s} N={n} M={m:3d} shard K={ks:5d} out="
+                    f"{ns:6d} W row stride {row['w_row_stride']:6d}  kernel "
+                    f"{row['kernel_ms']:.4f} ms (contiguous copy "
+                    f"{row['contiguous_ms']:.4f})  plain {row['plain_ms']:.4f}"
+                    f" ms  library {row['library_ms']:.4f} ms  bound "
+                    f"{bound:.4f} ms ({by}); kernel / bound "
+                    f"{row['kernel_ms'] / bound:.2f}, contiguous / bound "
+                    f"{row['contiguous_ms'] / bound:.2f}")
+                del wc
+        del w
+    steps = {}
+    for n in SHARD_NS:
+        for m in SHARD_M:
+            sel = [r for r in rows if r["N"] == n and r["M"] == m]
+            # one decode step (or prefill): every sharded site's N launches
+            step = {key: sum(n * SHARD_SITES[r["site"]][2] * r[key]
+                             for r in sel)
+                    for key in ("kernel_ms", "contiguous_ms", "plain_ms",
+                                "library_ms", "bound_ms")}
+            step["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
+                                               for r in sel) else
+                                "operations")
+            steps[(n, m)] = step
+            what = "prefill" if m == PREFILL_M else "decode step"
+            log(f"one {what}'s 225 sharded GEMMs at N={n}, M={m} "
+                f"({n} launches a site): kernel {step['kernel_ms']:.3f} ms "
+                f"(contiguous copies {step['contiguous_ms']:.3f}), plain "
+                f"{step['plain_ms']:.3f} ms, library "
+                f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} "
+                f"ms ({step['bound_by']})")
+    return steps, max_err
+
+
 def phase_quant_k1(flush):
     """What a quantised table costs K1 today: the executor builds the f32
     right input from the codes (the dequant projection, ``qchunk * scale``
@@ -656,34 +792,121 @@ def _assert_logits(lg_gpu, lg_cpu):
 def _engine_pair(spec, params, **knobs):
     """The same engine on the card and on the CPU (the port's reference):
     ``{device: engine}``.  ``accuracy_budget`` goes to the card's engine
-    only: the gate builds a second, f32 engine and changes no plan."""
+    only: the gate builds a second, f32 engine and changes no plan.
+    ``disk_dir=True`` gives each engine a cold-store directory of its own
+    under the checkout's ``build/``."""
     from repro_torch.serving.engine import RelationalEngine
     gate = {"accuracy_budget": knobs.pop("accuracy_budget")} \
         if "accuracy_budget" in knobs else {}
-    return {d: RelationalEngine(spec, params, max_len=64, device=d,
-                                **dict(dict(chunk_size=64), **knobs),
-                                **(gate if d == "cuda" else {}))
-            for d in ("cuda", "cpu")}
+    disk = knobs.pop("disk_dir", False)
+    engines = {}
+    for d in ("cuda", "cpu"):
+        extra = dict(gate if d == "cuda" else {})
+        if disk:
+            extra["disk_dir"] = str(COLD_DIR / d)
+        engines[d] = RelationalEngine(spec, params, max_len=64, device=d,
+                                      **dict(dict(chunk_size=64), **knobs),
+                                      **extra)
+    return engines
+
+
+def _pagers(eng):
+    """The engine's pagers: the coordinator's and each shard worker's."""
+    workers = eng.shard_pool.workers if eng.shard_pool is not None else []
+    return [p for p in [eng.pager] + [w.pager for w in workers]
+            if p is not None]
+
+
+def _gets_a_scan(eng, table: str) -> int:
+    """Pager gets a Scan of ``table`` makes in ``eng``: two for a quantised
+    table (its codes and its scales), one for a paged table, none for the
+    rest.  Read at each Scan: plans compiled later register more tables."""
+    workers = eng.shard_pool.workers if eng.shard_pool is not None else []
+    specs = [eng._quant_specs] + [w._quant_specs for w in workers
+                                  if w.pager is not None]
+    if any(table in spec for spec in specs):
+        return 2
+    return int(any(table in p._cold for p in _pagers(eng)))
+
+
+@contextlib.contextmanager
+def _counting_scans(eng):
+    """Count the executor's Scans of the tables ``eng``'s pagers serve
+    (weighted by the gets each makes) while the block runs: an independent
+    count of what the pagers must serve.  The executor recurses through
+    its module's ``execute``."""
+    import repro_torch.core.executor as ex
+    from repro_torch.core.relational import Scan
+    inner, count, lock = ex.execute, [0], threading.Lock()
+
+    def counting(node, env, memo=None, scalars=None):
+        if isinstance(node, Scan):
+            gets = _gets_a_scan(eng, node.table)
+            with lock:
+                count[0] += gets
+        return inner(node, env, memo, scalars)
+
+    ex.execute = counting
+    try:
+        yield count
+    finally:
+        ex.execute = inner
+
+
+def _shard_counts(eng):
+    """(sites fanned out, per-shard plan runs) of the engine's pool so far:
+    a site runs once a shard, on as many shards as its key range splits
+    into (the planner clamps N to the key's size)."""
+    pool = eng.shard_pool
+    if pool is None:
+        return 0, 0
+    return pool.stats.sites, int(sum(
+        w.metrics.counter("shard_worker_runs_total").value
+        for w in pool.workers))
+
+
+def _pager_gets(eng) -> int:
+    return sum(p.stats.hits + p.stats.prefetch_hits + p.stats.misses
+               for p in _pagers(eng))
 
 
 def _parity_session(engines, n_layers):
     """A 32-token prefill and 4 decode steps, the card's token fed to both
     engines: max |Δlogit|, the tokens, and the launches on the card checked
-    (K1 7·L + 1 and one attention kernel a layer per pipeline call)."""
+    (K1 7·L + 1 a pipeline call and N − 1 more a sharded site, one
+    attention kernel a layer a call).  Under paged residency the pagers'
+    hits + prefetch hits + misses on the card must equal the weight Scans
+    the plans issued; returns those stats too."""
     from repro_torch.kernels import (chunked_matmul, flash_attention,
                                      paged_attention)
+    gpu = engines["cuda"]
+    pool = gpu.shard_pool
+    shard0 = _shard_counts(gpu)
+    paged = bool(_pagers(gpu))
+    gets = _pager_gets(gpu)
     before = (chunked_matmul.launches, paged_attention.launches,
               flash_attention.launches)
     prompt = [int(t) for t in
               np.random.default_rng(1).integers(0, VOCAB, 32)]
-    sess = {d: e.start_session(prompt) for d, e in engines.items()}
+    scans = 0
+
+    def on(d, fn, *args):
+        nonlocal scans
+        if d != "cuda" or not paged:
+            return fn(*args)
+        with _counting_scans(gpu) as count:
+            out = fn(*args)
+        scans += count[0]
+        return out
+
+    sess = {d: on(d, e.start_session, prompt) for d, e in engines.items()}
     max_diff, gpu_toks, cpu_toks = 0.0, [], []
     for step in range(5):
         if step:
             for d in engines:
                 # teacher-force the GPU's token so both see one sequence
                 sess[d]["tok"] = gpu_toks[-1]
-                engines[d].session_step(sess[d])
+                on(d, engines[d].session_step, sess[d])
         lg_gpu, lg_cpu = sess["cuda"]["logits"], sess["cpu"]["logits"]
         max_diff = max(max_diff, _assert_logits(lg_gpu, lg_cpu))
         gpu_toks.append(int(np.argmax(lg_gpu)))
@@ -691,19 +914,48 @@ def _parity_session(engines, n_layers):
     launched = (chunked_matmul.launches - before[0],
                 paged_attention.launches - before[1],
                 flash_attention.launches - before[2])
-    assert launched == (5 * (7 * n_layers + 1), 4 * n_layers, n_layers), \
-        launched
-    return max_diff, gpu_toks, cpu_toks
+    sharded, runs = (a - b for a, b in zip(_shard_counts(gpu), shard0))
+    if pool is not None:
+        assert sharded > 0, "no site was sharded"
+    # each sharded site runs K1 once a shard in place of once
+    assert launched == (5 * (7 * n_layers + 1) + runs - sharded,
+                        4 * n_layers, n_layers), (launched, sharded, runs)
+    paging = None
+    if paged:
+        gets = _pager_gets(gpu) - gets
+        assert gets == scans, (gets, scans)
+        paging = {"scans": scans,
+                  "pagers": [dict(vars(p.stats), budget=p.budget)
+                             for p in _pagers(gpu)]}
+        # the reference's pager overshoots its budget by at most one
+        # table: when what it holds cannot be evicted (a prefetched entry,
+        # here the 2.1 GB vocabulary, fills most of 2 GiB) a miss still
+        # pages in
+        for p in _pagers(gpu):
+            largest = max((math.prod(c.shape) * c.dtype.itemsize
+                           for c in p._cold.values()), default=0)
+            assert p.stats.peak_bytes <= p.budget + largest, vars(p.stats)
+    return max_diff, gpu_toks, cpu_toks, paging, (sharded, runs)
 
 
 def _code_mismatches(engines):
     """Codes and scales of every quantised table built on the card against
-    the CPU's: (mismatching elements, elements compared)."""
+    the CPU's: (mismatching elements, elements compared).  Paged engines
+    hold them in their cold stores."""
     bad = total = 0
-    for name, t in engines["cuda"].env_base.items():
+    gpu, cpu = engines["cuda"], engines["cpu"]
+    if gpu.pager is not None:
+        for name in gpu.pager._cold:
+            if name.endswith(("::q", "::scale")):
+                got = gpu.pager.cold_tensor(name)
+                ref = cpu.pager.cold_tensor(name)
+                bad += int((got != ref).sum())
+                total += ref.numel()
+        return bad, total
+    for name, t in gpu.env_base.items():
         if name.endswith(("__int8", "__nf4")):
             for c, arr in t.cols.items():
-                ref = engines["cpu"].env_base[name].cols[c]
+                ref = cpu.env_base[name].cols[c]
                 bad += int((arr.cpu() != ref).sum())
                 total += ref.numel()
     return bad, total
@@ -740,6 +992,38 @@ def _plan_summary(eng) -> str:
             f"{len(plan.precision_decisions)} quantised tables")
 
 
+# phase 4's paged and sharded cases: a budget below the decode
+# plan's working set with the cold store in pinned host memory and on
+# disk, precision="auto" quantising to fit it, and 2 and 4 shards in
+# memory and paged
+PAGED = dict(residency="paged", budget_bytes=PHASE4_BUDGET)
+PAGED_CASES = [
+    ("residency=paged, pinned host memory, budget 2 GiB", PAGED),
+    ("residency=paged, disk_dir, budget 2 GiB", dict(PAGED, disk_dir=True)),
+    ("residency=paged precision=auto, budget 2 GiB",
+     dict(PAGED, precision="auto")),
+    ("shards=2", dict(shards=2)),
+    ("shards=4", dict(shards=4)),
+    ("shards=2 residency=paged, budget 2 GiB", dict(PAGED, shards=2)),
+    ("shards=4 residency=paged, budget 2 GiB", dict(PAGED, shards=4)),
+]
+
+
+def _working_set(eng) -> int:
+    """Stored bytes of the distinct paged tables the decode plan scans."""
+    from repro_torch.core.relational import Scan, walk
+    names = {n.table for step in eng.decode_pipe.steps
+             for n in walk(step.rel.plan) if isinstance(n, Scan)}
+    total = 0
+    for p in _pagers(eng):
+        for name, cold in p._cold.items():
+            base = name.split("::")[0]
+            if name in names or (base in names and name.endswith(
+                    ("::q", "::scale"))):
+                total += math.prod(cold.shape) * cold.dtype.itemsize
+    return total
+
+
 def phase_engine_parity():
     import repro_torch.serving.engine as engine_mod
     from repro_torch.core.llama_graph import LlamaSpec, init_llama_params
@@ -753,43 +1037,81 @@ def phase_engine_parity():
     log(f"numpy weights (seed 0): {time.perf_counter() - t0:.1f} s")
     worst = 0.0
     f32_gpu = None
-    for label, knobs in PLANNED_CASES:
+    shard_launches = {n: 0 for n in SHARD_NS}
+    for label, knobs in PLANNED_CASES + PAGED_CASES:
         t0 = time.perf_counter()
         engines = _engine_pair(spec, params, **knobs)
         built = time.perf_counter() - t0
-        diff, gpu_toks, cpu_toks = _parity_session(engines, spec.n_layers)
+        diff, gpu_toks, cpu_toks, paging, (sites, runs) = _parity_session(
+            engines, spec.n_layers)
         worst = max(worst, diff)
-        log(f"[{label}] {_plan_summary(engines['cuda'])}; built in "
+        gpu = engines["cuda"]
+        log(f"[{label}] {_plan_summary(gpu)}; built in "
             f"{built:.1f} s; prefill T=32 + 4 decode steps: max|Δlogit| GPU "
             f"vs CPU {diff:.3e}; tokens GPU {gpu_toks} CPU {cpu_toks}")
-        assert engines["cuda"].cache_layout == engines["cpu"].cache_layout
+        assert gpu.cache_layout == engines["cpu"].cache_layout
+        if gpu.shards > 1:
+            shard_launches[gpu.shards] += runs
+            log(f"  {gpu.shards} shards on {gpu.shards} CUDA streams: "
+                f"{sites} sites fanned out, {runs} K1 launches at shard "
+                f"shapes; pool busy {gpu.shard_pool.stats.fanout_s:.3f} s "
+                f"summed, {gpu.shard_pool.stats.critical_s:.3f} s critical "
+                f"path")
+        if paging is not None:
+            # precision="auto" quantises until the working set fits
+            ws = _working_set(gpu)
+            assert ws > PHASE4_BUDGET or knobs.get("precision") == "auto", (
+                ws, PHASE4_BUDGET)
+            log(f"  paged: decode plan's working set {ws / 1e9:.3f} GB, "
+                f"budget {PHASE4_BUDGET / 2**30:.0f} GiB; pager gets = "
+                f"weight Scans = {paging['scans']}; stats (coordinator, "
+                f"then each shard's pager) {paging['pagers']}")
+            assert any(p["evictions"] > 0 for p in paging["pagers"]), paging
         if "precision" in knobs:
+            if knobs["precision"] == "auto":
+                assert gpu.table_precision_choices, "auto quantised nothing"
+                log(f"  precision=auto under the budget quantised "
+                    f"{gpu.table_precision_choices}")
             bad, total = _code_mismatches(engines)
             log(f"  codes on the card against the CPU's: {bad} of {total} "
                 f"differ" + ("" if not bad else
                              " (held by the logits above instead)"))
-            err = logit_error_between(engines["cuda"], f32_gpu,
-                                      [3, 1, 2])
-            log(f"  accuracy gate passed; max|Δlogit| against the f32 "
-                f"engine on the probe prompt: {err:.4g}")
+            err = logit_error_between(gpu, f32_gpu, [3, 1, 2])
+            log(("  accuracy gate passed; " if "accuracy_budget" in knobs
+                 else "  ")
+                + f"max|Δlogit| against the f32 engine on the probe prompt: "
+                f"{err:.4g}")
         if not knobs:
-            f32_gpu = engines["cuda"]
+            f32_gpu = gpu
             _parity_batched_and_suffix(engines, spec, engine_mod,
                                        paged_attention, flash_attention)
-        else:
-            del engines
+        for e in engines.values():
+            if e.shard_pool is not None:
+                e.shard_pool.shutdown()
+        del engines, gpu
+        gc.collect()
         torch.cuda.empty_cache()
+        shutil.rmtree(COLD_DIR, ignore_errors=True)
+    assert all(shard_launches.values()), shard_launches
     # the unplanned case of the earlier slices
     engines = _engine_pair(spec, params, row2col="off", cache_layout="off")
-    diff, gpu_toks, cpu_toks = _parity_session(engines, spec.n_layers)
+    diff, gpu_toks, cpu_toks, _, _ = _parity_session(engines, spec.n_layers)
     log(f"[row2col=off cache_layout=off] unplanned: max|Δlogit| GPU vs CPU "
         f"{diff:.3e}; tokens GPU {gpu_toks} CPU {cpu_toks}")
     worst = max(worst, diff,
                 _parity_batched_and_suffix(engines, spec, engine_mod,
                                            paged_attention, flash_attention))
     del engines, params, f32_gpu
+    gc.collect()
     torch.cuda.empty_cache()
-    return worst
+    _release_pinned()
+    return worst, shard_launches
+
+
+def _release_pinned() -> None:
+    """Give the pinned host blocks PyTorch keeps cached back to the OS."""
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
 
 
 def _parity_batched_and_suffix(engines, spec, engine_mod, paged_attention,
@@ -872,18 +1194,123 @@ def _parity_batched_and_suffix(engines, spec, engine_mod, paged_attention,
     return max(bdiff, sdiff)
 
 
-def phase_serving(n_layers: int):
-    from repro_torch.core.llama_graph import LlamaSpec, init_llama_tensors
+def _spec(n_layers: int):
+    from repro_torch.core.llama_graph import LlamaSpec
+    return LlamaSpec(vocab=VOCAB, d_model=D_MODEL, n_layers=n_layers,
+                     n_heads=N_HEADS, n_kv=N_KV, d_ff=D_FF, rope_theta=THETA)
+
+
+def _serve_cold_requests(eng, tag: str):
+    """Phase 5's request set (prompts of 32/64/32/64 tokens, 8 new tokens
+    each) through ``ContinuousBatcher(max_batch=3)`` and a
+    ``BatchedDecoder(prefix_block=0)``, the plans compiled before the
+    requests arrive.  Every kernel's count is zeroed just before the run
+    and read just after: K1 7·L + 1 a pipeline call (N − 1 more a sharded
+    site), K2 L a decode tick, K3 L a prefill.  Returns the launches, the
+    decoder and the scheduler."""
     from repro_torch import kernels
-    from repro_torch.serving.engine import RelationalEngine
     from repro_torch.serving.kvcache import PagedKVCache, PagedKVConfig
     from repro_torch.serving.scheduler import ContinuousBatcher, Request
+    n_layers = eng.spec.n_layers
+    kv = PagedKVCache(PagedKVConfig(n_layers=n_layers, n_kv=N_KV,
+                                    head_dim=HEAD_DIM, page_size=16,
+                                    n_pages=64, max_pages_per_seq=32),
+                      max_seqs=4, device="cuda")
+    dec = eng.batched_decoder(max_seqs=4, prefix_block=0)
+
+    def prefill(req, seq_id):
+        kv.ensure_capacity(seq_id, len(req.context))
+        return dec.prefill(req.context, seq_id)
+
+    sched = ContinuousBatcher(kv, prefill, dec.decode, max_batch=3,
+                              release_fn=dec.free)
+    lengths = (32, 64, 32, 64)
+    # compile the plans the run needs before the requests arrive, so
+    # TTFT/TPOT are steady state
+    t0 = time.perf_counter()
+    for n in sorted(set(lengths)):
+        _compile_logged(eng, f"prefill T={n}", eng._prefill_pipe, n)
+    for bucket in (1, 2, 4):
+        _compile_logged(eng, f"batched decode B={bucket}",
+                        eng._batched_decode_pipe, bucket)
+    log(f"{tag} plans compiled (prefill T={sorted(set(lengths))}, batch "
+        f"buckets 1, 2, 4) in {time.perf_counter() - t0:.2f} s; memory "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    rng = np.random.default_rng(2)
+    for rid, n in enumerate(lengths):
+        sched.submit(Request(rid=rid, prompt=[int(t) for t in
+                                              rng.integers(0, VOCAB, n)],
+                             max_new_tokens=8))
+    wrappers = [getattr(kernels, name) for name in KERNELS]
+    shard0 = _shard_counts(eng)
+    for fn in wrappers:
+        fn.launches = fn.calls = 0
+    kernels.chunked_matmul.col_launches = 0
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+    launches["chunked_matmul_col"] = kernels.chunked_matmul.col_launches
+    sharded, runs = (a - b for a, b in zip(_shard_counts(eng), shard0))
+    launches["chunked_matmul_shard"] = runs
+    assert all(fn.calls == fn.launches for fn in wrappers), [
+        (fn.calls, fn.launches) for fn in wrappers]
+    prefills, decodes = sched.stats.prefills, dec.decode_calls
+    per_call = 7 * n_layers + 1
+    assert len(done) == len(lengths), done
+    for req in done:
+        assert len(req.generated) == 8, (req.rid, req.generated)
+        assert all(0 <= t < VOCAB for t in req.generated)
+    assert launches["chunked_matmul"] == per_call * (
+        prefills + decodes) + runs - sharded, (launches, prefills, decodes,
+                                               sharded, runs)
+    assert launches["paged_attention"] == n_layers * decodes, launches
+    assert launches["flash_attention"] == n_layers * prefills, launches
+    log(f"{tag} served {len(done)} requests in {wall:.2f} s: ticks "
+        f"{sched.stats.ticks}, prefills {prefills}, decode "
+        f"ticks {decodes}, preemptions {sched.stats.preemptions}")
+    log(f"{tag} launches: chunked_matmul {launches['chunked_matmul']} = "
+        f"{per_call} x {prefills + decodes} run_pipeline calls"
+        + (f" + {runs - sharded} more for {sharded} sharded sites (of them "
+           f"{runs} at shard shapes)" if sharded else "")
+        + f" (of them {launches['chunked_matmul_col']} in the column "
+        f"layouts), paged_attention {launches['paged_attention']} = "
+        f"{n_layers} x {decodes} decode ticks, flash_attention "
+        f"{launches['flash_attention']} = {n_layers} x {prefills} prefills")
+    for req in sorted(done, key=lambda r: r.rid):
+        tpot = (req.done_s - req.first_token_s) / (len(req.generated) - 1)
+        log(f"  {tag} req{req.rid}: prompt {len(req.prompt)} tokens, ttft "
+            f"{req.first_token_s * 1e3:.1f} ms, tpot {tpot * 1e3:.1f} ms, "
+            f"tokens {req.generated}")
+    return launches, dec, kv
+
+
+def _fixed_session(eng, tokens=None):
+    """The fixed prompt's 32-token prefill and 4 decode steps: the logits
+    of each call on the host [5, vocab] and the tokens fed (its own argmax,
+    or ``tokens``: teacher-forced to another engine's sequence)."""
+    prompt = [int(t) for t in np.random.default_rng(
+        FIXED_PROMPT_SEED).integers(0, VOCAB, 32)]
+    sess = eng.start_session(prompt)
+    logits, fed = [sess["logits"]], []
+    for i in range(FIXED_STEPS):
+        tok = tokens[i] if tokens is not None else int(np.argmax(logits[-1]))
+        sess["tok"] = tok
+        fed.append(tok)
+        eng.session_step(sess)
+        logits.append(sess["logits"])
+    return np.stack(logits), fed
+
+
+def phase_serving(n_layers: int):
+    from repro_torch.core.llama_graph import init_llama_tensors
+    from repro_torch.serving.engine import RelationalEngine
     log(f"== phase 5: serving at Llama-3-8B width, {n_layers} layers, "
         f"on the card")
     if n_layers != N_LAYERS:
         log(f"depth cut: {n_layers} of {N_LAYERS} layers")
-    spec = LlamaSpec(vocab=VOCAB, d_model=D_MODEL, n_layers=n_layers,
-                     n_heads=N_HEADS, n_kv=N_KV, d_ff=D_FF, rope_theta=THETA)
+    spec = _spec(n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_llama_tensors(spec, seed=0, device="cuda")
@@ -906,80 +1333,225 @@ def phase_serving(n_layers: int):
     log(f"decode plan: {_plan_summary(eng)}; column twins "
         f"{twins / 1e9:.2f} GB; memory allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-
-    kv = PagedKVCache(PagedKVConfig(n_layers=n_layers, n_kv=N_KV,
-                                    head_dim=D_MODEL // N_HEADS,
-                                    page_size=16, n_pages=64,
-                                    max_pages_per_seq=32),
-                      max_seqs=4, device="cuda")
-    dec = eng.batched_decoder(max_seqs=4, prefix_block=0)
-
-    def prefill(req, seq_id):
-        ctx = req.context
-        kv.ensure_capacity(seq_id, len(ctx))
-        return dec.prefill(ctx, seq_id)
-
-    sched = ContinuousBatcher(kv, prefill, dec.decode, max_batch=3,
-                              release_fn=dec.free)
-    lengths = (32, 64, 32, 64)
-    # compile the plans the run needs before the requests arrive, so
-    # TTFT/TPOT are steady state
-    t0 = time.perf_counter()
-    for n in sorted(set(lengths)):
-        _compile_logged(eng, f"prefill T={n}", eng._prefill_pipe, n)
-    for bucket in (1, 2, 4):
-        _compile_logged(eng, f"batched decode B={bucket}",
-                        eng._batched_decode_pipe, bucket)
-    log(f"plans compiled (prefill T={sorted(set(lengths))}, batch buckets "
-        f"1, 2, 4) in {time.perf_counter() - t0:.2f} s; memory allocated "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    rng = np.random.default_rng(2)
-    for rid, n in enumerate(lengths):
-        sched.submit(Request(rid=rid, prompt=[int(t) for t in
-                                              rng.integers(0, VOCAB, n)],
-                             max_new_tokens=8))
-    wrappers = [getattr(kernels, name) for name in KERNELS]
-    for fn in wrappers:
-        fn.launches = fn.calls = 0
-    kernels.chunked_matmul.col_launches = 0
-    t0 = time.perf_counter()
-    done = sched.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
-    launches["chunked_matmul_col"] = kernels.chunked_matmul.col_launches
-    assert all(fn.calls == fn.launches for fn in wrappers), [
-        (fn.calls, fn.launches) for fn in wrappers]
-    prefills, decodes = sched.stats.prefills, dec.decode_calls
-    per_call = 7 * n_layers + 1
-    assert len(done) == len(lengths), done
-    for req in done:
-        assert len(req.generated) == 8, (req.rid, req.generated)
-        assert all(0 <= t < VOCAB for t in req.generated)
-    assert launches["chunked_matmul"] == per_call * (prefills + decodes), (
-        launches, prefills, decodes)
-    assert launches["paged_attention"] == n_layers * decodes, launches
-    assert launches["flash_attention"] == n_layers * prefills, launches
-    log(f"served {len(done)} requests in {wall:.2f} s: ticks "
-        f"{sched.stats.ticks}, prefills {prefills}, decode "
-        f"ticks {decodes}, preemptions {sched.stats.preemptions}")
-    log(f"launches: chunked_matmul {launches['chunked_matmul']} = "
-        f"{per_call} x {prefills + decodes} run_pipeline calls (of them "
-        f"{launches['chunked_matmul_col']} in the column layouts), "
-        f"paged_attention {launches['paged_attention']} = {n_layers} x "
-        f"{decodes} decode ticks, flash_attention "
-        f"{launches['flash_attention']} = {n_layers} x {prefills} prefills")
-    for req in sorted(done, key=lambda r: r.rid):
-        tpot = (req.done_s - req.first_token_s) / (len(req.generated) - 1)
-        log(f"  req{req.rid}: prompt {len(req.prompt)} tokens, ttft "
-            f"{req.first_token_s * 1e3:.1f} ms, tpot {tpot * 1e3:.1f} ms, "
-            f"tokens {req.generated}")
+    launches, dec, kv = _serve_cold_requests(eng, "[phase 5]")
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
-    profile_tick(dec)
+    tick = profile_tick(dec)
     del dec, kv
+    # the fixed prompt's logits, which phases 7 and 8 are held to
+    fixed = _fixed_session(eng)
+    log(f"fixed prompt (seed {FIXED_PROMPT_SEED}): prefill T=32 + "
+        f"{FIXED_STEPS} decode steps, tokens {fixed[1]}")
     torch.cuda.empty_cache()
-    return launches, eng
+    return launches, eng, fixed, tick
+
+
+def _hold_to_fixed(eng, fixed, tag: str) -> float:
+    """The fixed prompt through ``eng``, teacher-forced to phase 5's tokens:
+    logits within 1e-3 of phase 5's, greedy tokens equal where phase 5's
+    top-2 margin exceeds 1e-3."""
+    ref_logits, ref_tokens = fixed
+    got, _ = _fixed_session(eng, ref_tokens)
+    diff = _assert_logits(got, ref_logits)
+    log(f"{tag} fixed prompt, prefill T=32 + {FIXED_STEPS} decode steps fed "
+        f"phase 5's tokens: max|Δlogit| against phase 5 {diff:.3e}")
+    return diff
+
+
+def _mem_available() -> int:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def _pinned_bytes(n_layers: int, budget: int) -> int:
+    """Host memory phase 7's cold store pins at ``n_layers``: every row
+    table, and column twins of at most ``budget`` bytes (the planner's
+    pool), each rounded up to a power of two as PyTorch's pinned allocator
+    rounds its blocks (the 2.1 GB lm_head twin: 4.3 GB)."""
+    def pow2(n):
+        return 1 << (n - 1).bit_length()
+    d, dh, ff = D_MODEL, HEAD_DIM, D_FF
+    layer = [N_HEADS * dh * d, N_KV * dh * d, N_KV * dh * d, d * d,
+             ff * d, d * ff, ff * d, d, d]
+    rows = 2 * pow2(4 * VOCAB * d) + pow2(4 * d) + n_layers * sum(
+        pow2(4 * n) for n in layer)
+    return rows + pow2(4 * VOCAB * d) + budget
+
+
+def _h2d_rate() -> float:
+    """Bytes/s of a plain pinned 1 GiB ``copy_`` host → device: the median
+    of 5, timed with CUDA events."""
+    src = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    for _ in range(2):
+        dst.copy_(src, non_blocking=True)
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del src, dst
+    return (1 << 30) / (statistics.median(times) / 1e3)
+
+
+def phase_paged_serving(fixed):
+    """Paged serving at Llama-3-8B width (the paper's Disk+mem mode): the
+    planned defaults with ``residency="paged"``, the cold tables in pinned
+    host memory, ``pager_policy="pin"`` and a 16 GiB budget against the
+    decode step's 32.1 GB of weights; phase 5's request set; the fixed
+    prompt held to phase 5's logits."""
+    from repro_torch.core.llama_graph import init_llama_tensors
+    from repro_torch.serving.engine import RelationalEngine
+    log(f"== phase 7: paged serving at Llama-3-8B width: cold tables in "
+        f"pinned host memory, pager_policy=pin, budget_bytes "
+        f"{PAGED_BUDGET / 2**30:.0f} GiB")
+    avail0 = _mem_available()
+    rate = _h2d_rate()
+    log(f"host MemAvailable before the cold store {avail0 / 1e9:.2f} GB; "
+        f"pinned 1 GiB copy_ host to device: {rate / 1e9:.2f} GB/s (median "
+        f"of 5)")
+    n_layers = N_LAYERS
+    while n_layers > 1 and (_pinned_bytes(n_layers, PAGED_BUDGET)
+                            + HOST_MARGIN > avail0):
+        n_layers -= 1
+    need = _pinned_bytes(n_layers, PAGED_BUDGET)
+    if n_layers != N_LAYERS:
+        log(f"depth cut: {n_layers} of {N_LAYERS} layers, because the "
+            f"host's {avail0 / 1e9:.2f} GB available cannot hold the "
+            f"{_pinned_bytes(N_LAYERS, PAGED_BUDGET) / 1e9:.2f} GB of pinned "
+            f"cold store 32 layers need beside a "
+            f"{HOST_MARGIN / 2**30:.0f} GiB margin")
+        ref = RelationalEngine(_spec(n_layers), init_llama_tensors(
+            _spec(n_layers), seed=0, device="cuda"), chunk_size=64,
+            max_len=512, device="cuda")
+        fixed = _fixed_session(ref)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"fixed prompt's reference logits from an in-memory engine at "
+            f"{n_layers} layers")
+    spec = _spec(n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_llama_tensors(spec, seed=0, device="cuda")
+    # each table into a pinned host tensor of its own, one at a time
+    for name in list(params):
+        host = torch.empty(params[name].shape, dtype=params[name].dtype,
+                           pin_memory=True)
+        host.copy_(params[name])
+        params[name] = host
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    eng = RelationalEngine(spec, params, chunk_size=64, max_len=512,
+                           residency="paged", budget_bytes=PAGED_BUDGET,
+                           pager_policy="pin", device="cuda")
+    del params
+    t2 = time.perf_counter()
+    pager = eng.pager
+    avail1 = _mem_available()
+    plan = eng.decode_pipe.layout_plan
+    denied = sum(d.denied_by_budget for d in plan.decisions)
+    col = sum(d.layout != "row_chunk" for d in plan.decisions)
+    pool = eng._residency_pool
+    log(f"cold store: {pager.total_cold_bytes() / 1e9:.2f} GB in "
+        f"{len(pager._cold)} pinned host tensors (estimated pinned need "
+        f"{need / 1e9:.2f} GB); weights drawn and copied to pinned memory in "
+        f"{t1 - t0:.1f} s; engine built (plan, column twins converted on the "
+        f"card into the cold store) in {t2 - t1:.1f} s; host MemAvailable "
+        f"after {avail1 / 1e9:.2f} GB (used {(avail0 - avail1) / 1e9:.2f} "
+        f"GB)")
+    log(f"decode plan under the budget: {_plan_summary(eng)}; {col} sites in "
+        f"the column layouts, {denied} denied by the budget "
+        f"(denied_by_budget); the pool committed {pool.spent / 1e9:.2f} GB "
+        f"of column copies ({len(pool.tables)} tables); working set of the "
+        f"decode plan {_working_set(eng) / 1e9:.2f} GB")
+    stats0 = dict(vars(pager.stats))
+    launches, dec, kv = _serve_cold_requests(eng, "[phase 7]")
+    calls = (launches["flash_attention"]
+             + launches["paged_attention"]) // n_layers
+    stats = {k: v - stats0[k] if k != "peak_bytes" else v
+             for k, v in vars(pager.stats).items()}
+    assert pager.stats.peak_bytes <= PAGED_BUDGET, vars(pager.stats)
+    assert stats["evictions"] > 0, stats
+    log(f"[phase 7] pager over the run: {stats}; "
+        f"{stats['bytes_loaded'] / calls / 1e9:.2f} GB loaded a pipeline "
+        f"call ({calls} calls); peak held {pager.stats.peak_bytes / 1e9:.2f} "
+        f"GB <= budget {PAGED_BUDGET / 1e9:.2f} GB")
+    tick = profile_tick(dec, pager)
+    per_tick = tick["bytes_a_tick"]
+    bound_ms = per_tick / rate * 1e3
+    log(f"[phase 7] a decode tick (B=3) streams {per_tick / 1e9:.2f} GB "
+        f"(mean over the 5 timed ticks); the pager's "
+        f"bound at the measured {rate / 1e9:.2f} GB/s: {bound_ms:.1f} ms; "
+        f"median tick wall {tick['wall_ms']:.1f} ms = "
+        f"{tick['wall_ms'] / bound_ms:.2f} x the bound")
+    log(f"[phase 7] max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, memory reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB (the caching allocator "
+        f"keeps freed blocks; the budget bounds what the pager holds)")
+    del dec, kv
+    diff = _hold_to_fixed(eng, fixed, "[phase 7]")
+    summary = {"n_layers": n_layers, "pager": stats,
+               "bytes_a_tick": per_tick, "h2d_bytes_per_s": rate,
+               "bound_ms": bound_ms, "tick": tick, "max_abs_logit": diff}
+    del eng, pager
+    gc.collect()
+    torch.cuda.empty_cache()
+    _release_pinned()
+    return launches, summary
+
+
+def phase_sharded_serving(fixed, tick5, n_shards: int = 2):
+    """Sharded serving at Llama-3-8B width, 32 layers, in memory: every
+    eligible matmul site split over ``n_shards`` workers on CUDA streams,
+    the weight slices views of the resident tables; phase 5's request
+    set; the fixed prompt held to phase 5's logits; a batched tick beside
+    phase 5's."""
+    from repro_torch.core.llama_graph import init_llama_tensors
+    from repro_torch.serving.engine import RelationalEngine
+    log(f"== phase 8: sharded serving at Llama-3-8B width, {N_LAYERS} "
+        f"layers, shards={n_shards}, in memory")
+    spec = _spec(N_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = RelationalEngine(spec, init_llama_tensors(spec, seed=0,
+                                                    device="cuda"),
+                           chunk_size=64, max_len=512, shards=n_shards,
+                           device="cuda")
+    torch.cuda.synchronize()
+    kinds = {}
+    for d in eng.decode_pipe.shard_plan.decisions:
+        kinds[d.kind] = kinds.get(d.kind, 0) + 1
+    log(f"engine built in {time.perf_counter() - t0:.1f} s; decode plan: "
+        f"{_plan_summary(eng)}; sharded sites {kinds}; memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (the slices are "
+        f"views)")
+    launches, dec, kv = _serve_cold_requests(eng, "[phase 8]")
+    log(f"[phase 8] max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; pool: "
+        f"{eng.shard_pool.stats.sites} sites fanned out, worker busy "
+        f"{eng.shard_pool.stats.fanout_s:.2f} s summed, "
+        f"{eng.shard_pool.stats.critical_s:.2f} s critical path")
+    tick = profile_tick(dec)
+    log(f"[phase 8] batched tick (B=3), sharded against phase 5's "
+        f"unsharded: host wall {tick['wall_ms']:.2f} against "
+        f"{tick5['wall_ms']:.2f} ms, device busy "
+        + (f"{tick['busy_ms']:.2f} against {tick5['busy_ms']:.2f} ms"
+           if tick["busy_ms"] is not None and tick5["busy_ms"] is not None
+           else "not measured"))
+    del dec, kv
+    diff = _hold_to_fixed(eng, fixed, "[phase 8]")
+    eng.shard_pool.shutdown()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"tick": tick, "max_abs_logit": diff}
 
 
 def _compile_logged(eng, label, compile_fn, *args):
@@ -1162,10 +1734,12 @@ def phase_prefix_serving(eng):
     return launches, ttft
 
 
-def profile_tick(dec) -> None:
+def profile_tick(dec, pager=None) -> dict:
     """Where one batched decode tick (3 sequences) spends device time:
     kernels by name from ``torch.profiler``, and the device's idle share of
-    the tick's host wall time."""
+    the tick's host wall time.  Returns the median unprofiled wall, the
+    device busy time (None where the profiler saw no device time) and,
+    given the engine's pager, the bytes it loaded a tick."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(3)
     last = [dec.prefill([int(t) for t in rng.integers(0, VOCAB, 32)], s)
@@ -1173,10 +1747,15 @@ def profile_tick(dec) -> None:
     for _ in range(2):  # warm: view cache and allocator
         last = dec.decode([0, 1, 2], last)
     walls = []
+    loaded = pager.stats.bytes_loaded if pager is not None else 0
     for _ in range(5):  # decode returns after the logits' copy to the host
         t0 = time.perf_counter()
         last = dec.decode([0, 1, 2], last)
         walls.append((time.perf_counter() - t0) * 1e3)
+    out = {"wall_ms": statistics.median(walls), "walls_ms": walls,
+           "busy_ms": None}
+    if pager is not None:
+        out["bytes_a_tick"] = (pager.stats.bytes_loaded - loaded) / len(walls)
     log(f"decode tick (B=3, bucket 4) host wall without the profiler: "
         f"median of 5 {statistics.median(walls):.2f} ms (min "
         f"{min(walls):.2f}, max {max(walls):.2f})")
@@ -1194,13 +1773,16 @@ def profile_tick(dec) -> None:
     if not by_name:
         log("tick profile: the profiler recorded no device time "
             "(device busy share not measured)")
-        return
+        return out
+    out["busy_ms"] = busy / 1e3
+    out["idle_share"] = 1 - busy / wall_us
     log(f"one decode tick (B=3, bucket 4) under the profiler: wall "
         f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share "
         f"{1 - busy / wall_us:.3f}; against the unprofiled median wall "
         f"{1 - busy / 1e3 / statistics.median(walls):.3f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name[:90]}")
+    return out
 
 
 def main() -> int:
@@ -1228,23 +1810,33 @@ def main() -> int:
     cache_rows = timed("phase 3 (K2, K3 cache orders)",
                        phase_cache_layout_attention, flush)
     quant_k1 = timed("phase 3 (quantised K1)", phase_quant_k1, flush)
+    shard_steps, shard_err = timed("phase 3 (K1 shard slices)",
+                                   phase_shard_kernels, flush)
     del flush
-    timed("phase 4", phase_engine_parity)
-    serving, eng = timed("phase 5", phase_serving, N_LAYERS)
+    _, phase4_shard_launches = timed("phase 4", phase_engine_parity)
+    serving, eng, fixed, tick5 = timed("phase 5", phase_serving, N_LAYERS)
     prefix, _ = timed("phase 6", phase_prefix_serving, eng)
     cache_layout = eng.cache_layout
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
+    paged, paged_summary = timed("phase 7", phase_paged_serving, fixed)
+    sharded, _ = timed("phase 8", phase_sharded_serving, fixed, tick5)
     # each main path's counts, zeroed just before it and read just after:
-    # phase 5's cold serving, phase 6's prefix-cached serving per bind mode
+    # phase 5's cold serving, phase 6's prefix-cached serving per bind mode,
+    # phase 7's paged serving and phase 8's sharded serving
     paths = {"serving": serving, "prefix_serving_copy": prefix["copy"],
-             "prefix_serving_share": prefix["share"]}
+             "prefix_serving_share": prefix["share"],
+             "paged_serving": paged, "sharded_serving": sharded}
     counted = KERNELS + ("chunked_matmul_col",)
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counted}
     by_path = {name: {path: p[name] for path, p in paths.items()}
                for name in counted}
     assert launches["chunked_matmul_col"] > 0, launches
+    assert all(p[name] > 0 for p in paths.values() for name in KERNELS), \
+        paths
+    assert sharded["chunked_matmul_shard"] > 0, sharded
     log("kernels: K1 chunked_matmul: ok, K2 paged_attention: ok, "
         "K3 flash_attention: ok")
     log(f"total wall {time.perf_counter() - t_all:.1f} s")
@@ -1338,6 +1930,33 @@ def main() -> int:
                 "times_are": f"{N_LAYERS} launches at {r['shape']} over "
                              f"{cache_layout} caches, {N_LAYERS} x the "
                              f"per-launch median"})
+    # K1 at one shard's slices: N = 2 ran on phase 8's main path, N = 4 in
+    # phase 4's depth-2 cases (shards=4 in memory and paged)
+    shard_paths = {2: {"sharded_serving": sharded["chunked_matmul_shard"]},
+                   4: {"phase4_shards_4": phase4_shard_launches[4]}}
+    for n in SHARD_NS:
+        r, pre = shard_steps[(n, 1)], shard_steps[(n, PREFILL_M)]
+        kernels.append({
+            "name": f"chunked_matmul (shard slices, N={n})", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chunked_matmul.cu",
+            "replaces": REPLACES["chunked_matmul"],
+            "launches": sum(shard_paths[n].values()),
+            "launches_by_path": shard_paths[n],
+            "max_abs_err": shard_err, "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "contiguous_ms": r["contiguous_ms"],
+            "prefill_ms": pre["kernel_ms"],
+            "prefill_library_ms": pre["library_ms"],
+            "prefill_bound_ms": pre["bound_ms"],
+            "prefill_contiguous_ms": pre["contiguous_ms"],
+            "times_are": f"one decode step's 225 sharded GEMMs at M=1, "
+                         f"{n} launches a site on the strided slices the "
+                         f"workers pass (contiguous_ms: on contiguous copies "
+                         f"of the slices; prefill_*: M={PREFILL_M}), "
+                         f"summed from shard 0's per-shape medians; library: "
+                         f"torch.matmul on the same views"})
+    log(f"phase 7 (paged): {json.dumps(paged_summary)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

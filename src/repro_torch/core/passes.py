@@ -188,8 +188,8 @@ def postoptimize(pipeline: RelPipeline, layout_mode: str = "off",
     and a combine decision recorded on ``pipeline.shard_plan``
     (``repro.planner.shard``); plans themselves are not rewritten.
     The resulting ``LayoutPlan`` is recorded on ``pipeline.layout_plan``.
-    The shard plan is plan-side only in this port: executing it needs
-    ``run_pipeline(shard_runner=)``, which raises (ROADMAP N7).
+    The shard plan runs through ``run_pipeline(shard_runner=)`` with a
+    ``repro_torch.serving.shards.ShardWorkerPool``.
     """
     before = count_nodes(pipeline)
     memo: Dict[int, RelNode] = {}

@@ -58,27 +58,41 @@ def run_pipeline(
     tables are aligned to the planned key order; pass ``layout_plan`` to
     override the plan recorded on the pipeline.
 
-    ``tracer`` and ``shard_runner`` keep the reference's signature;
-    tracing and shards are not ported, so anything but ``None`` raises
-    ``NotImplementedError``.
+    ``shard_runner`` (e.g. ``repro_torch.serving.shards.ShardWorkerPool.
+    run_step``) takes over bind steps the pipeline's shard plan split
+    across workers: it fans the per-shard plan copies out, combines the
+    partials, seeds this call's memo at the sharded aggregates and
+    executes the step's unsharded tail, returning the step's output
+    table.  Steps without shard decisions (and all append steps) run on
+    the normal path regardless.
+
+    ``env`` may be a paged ``LazyEnv`` (``serving/engine.py``), which
+    fetches weight tables on first Scan; it is copied with ``.copy()`` so
+    it stays one, and it names the device the call runs on.  ``tracer``
+    keeps the reference's signature; tracing is not ported, so anything
+    but ``None`` raises ``NotImplementedError``.
     """
     if tracer is not None:
         raise NotImplementedError(
             "pipeline tracing is not ported: see ROADMAP.md next slice N6")
-    if shard_runner is not None:
-        raise NotImplementedError(
-            "sharded execution is not ported: see ROADMAP.md next slice N7")
-    env = dict(env)
+    env = env.copy()
     layout_plan = layout_plan or getattr(pipeline, "layout_plan", None)
     if layout_plan is not None:
         env = layout_plan.ensure_env(env)
-    device = next(iter(next(iter(env.values())).cols.values())).device
+    shard_plan = (getattr(pipeline, "shard_plan", None)
+                  if shard_runner is not None else None)
+    device = getattr(env, "device", None) or next(
+        iter(next(iter(env.values())).cols.values())).device
     host, scalars = _bind_scalars(scalars or {}, device)
     memo: Dict[int, DenseTable] = {}
 
     for step in pipeline.steps:
         if step.kind == "bind":
-            env[step.name] = execute(step.rel.plan, env, memo, scalars)
+            if shard_plan is not None and step.name in shard_plan.by_step:
+                env[step.name] = shard_runner(shard_plan, step, env, memo,
+                                              scalars, tracer)
+            else:
+                env[step.name] = execute(step.rel.plan, env, memo, scalars)
             continue
         if step.kind != "append":
             raise ValueError(step.kind)

@@ -49,13 +49,16 @@ On a CPU tensor the wrapper runs the plain version (``ref.chunked_matmul``);
 on a CUDA tensor it launches the kernel or raises.  ``chunked_matmul.calls``
 counts every call and ``chunked_matmul.launches`` every call that ran on
 the card (one per call, whether or not K is split);
-``chunked_matmul.col_launches`` counts those in the column layouts.
+``chunked_matmul.col_launches`` counts those in the column layouts.  The
+shard workers call the wrapper from several threads at once, so the counts
+are taken under a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -272,7 +275,8 @@ def chunked_matmul(x: torch.Tensor, w: torch.Tensor,
     C [M, H·Nh] has ``C[:, h·Nh:(h+1)·Nh] = X · w[h]``.
     Any strides, but the inner one must be 1."""
     _check(x, w, layout)
-    chunked_matmul.calls += 1
+    with _COUNT_LOCK:
+        chunked_matmul.calls += 1
     if x.device.type == "cpu":
         return ref.chunked_matmul(x, w, layout)
     if layout == "col":
@@ -297,7 +301,8 @@ def chunked_matmul(x: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"chunked_matmul kernel launch failed: CUDA error "
                            f"{err} (M={M}, N={N}, K={K}, {x.dtype}, {plan})")
-    chunked_matmul.launches += 1
+    with _COUNT_LOCK:
+        chunked_matmul.launches += 1
     return out
 
 
@@ -323,11 +328,13 @@ def _launch_col(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"chunked_matmul (col) kernel launch failed: CUDA "
                            f"error {err} (M={M}, H={H}, Nh={Nh}, K={K}, "
                            f"{x.dtype}, {plan})")
-    chunked_matmul.launches += 1
-    chunked_matmul.col_launches += 1
+    with _COUNT_LOCK:
+        chunked_matmul.launches += 1
+        chunked_matmul.col_launches += 1
     return out
 
 
+_COUNT_LOCK = threading.Lock()
 chunked_matmul.calls = 0
 chunked_matmul.col_launches = 0
 chunked_matmul.launches = 0

@@ -37,9 +37,9 @@ site is only eligible when its logical axis ("heads" / "kv_heads" /
 "vocab" / "mlp" / "inner") maps to a non-empty mesh-axis rule.
 
 Execution halves live elsewhere: ``core.sqlgen`` renders the per-shard
-DDL + per-shard views + combine relation; running the per-shard plan
-copies (the reference's ``serving.shards.ShardWorkerPool``) is not part
-of this package yet, so ``run_pipeline(shard_runner=...)`` raises.
+DDL + per-shard views + combine relation; ``serving.shards.
+ShardWorkerPool`` runs the per-shard plan copies through
+``run_pipeline(shard_runner=...)``.
 """
 
 from __future__ import annotations

@@ -286,13 +286,15 @@ def quantise_dense(arr, chunk_size: int, codec: Codec
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Quantise a dense weight array grouped at ``chunk_size`` along the
     trailing dim (zero-padding the tail): ``(packed_codes, scales)`` in the
-    cold-store layout — the paged engine's offline conversion."""
-    arr = np.asarray(arr, np.float32)
+    cold-store layout as host arrays — the paged engine's offline
+    conversion.  Runs on the device of a tensor (a numpy array on the
+    CPU)."""
+    arr = _as_tensor(arr, torch.float32)
     *lead, width = arr.shape
     nch = max(1, -(-width // chunk_size))
     pad = nch * chunk_size - width
     if pad:
-        arr = np.pad(arr, [(0, 0)] * len(lead) + [(0, pad)])
+        arr = torch.nn.functional.pad(arr, (0, pad))
     grouped = arr.reshape(*lead, nch, chunk_size)
-    codes, scales = codec.quantise(torch.from_numpy(grouped))
-    return codec.pack(codes), scales.numpy()
+    codes, scales = codec.quantise(grouped)
+    return codec.pack(codes), scales.cpu().numpy()

@@ -14,29 +14,41 @@ This port runs the reference's defaults: every pipeline is physically
 planned (``row2col="auto"``, ``cache_layout="auto"``: ROW2COL column
 weight layouts and the planner's KV-cache key order), with ``chunk_size``,
 ``chunk_candidates``, ``cost_params``, ``precision``, ``table_precisions``
-and ``accuracy_budget`` as in the reference, in-memory residency, the
-prefix cache (``BatchedDecoder(prefix_block=16)``) and an optional
-``metrics`` registry (``repro_torch.obs.MetricsRegistry``).  Paged
-residency, ``tracer`` and ``shards > 1`` raise ``NotImplementedError``
-naming the ROADMAP.md slice that brings them.
+and ``accuracy_budget`` as in the reference, both residencies
+(``residency="in_memory"``, or ``"paged"``: the paper's Disk+mem mode,
+weight tables streaming through a bounded :class:`~repro_torch.serving.
+pager.WeightPager` working set), ``shards`` (the planner's tensor-parallel
+axis run by :mod:`repro_torch.serving.shards`), the prefix cache
+(``BatchedDecoder(prefix_block=16)``) and an optional ``metrics`` registry
+(``repro_torch.obs.MetricsRegistry``).  ``tracer`` raises
+``NotImplementedError`` naming the ROADMAP.md slice that brings it.
+
+The reference's docstring says its relational pager prefetches the next
+layer's tables during compute; its code prefetches only the
+``vocabulary`` table at the start of each session, and so does this port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.core import llama_graph as lg
-from repro_torch.core.chunked import resolve_device
+from repro_torch.core import relational as ra
+from repro_torch.core.chunked import ChunkedTensor, resolve_device
+from repro_torch.core.executor import DenseTable, table_from_chunked
 from repro_torch.core.graph import infer_shapes
 from repro_torch.core.opmap import op_map
 from repro_torch.core.passes import postoptimize, preoptimize
 from repro_torch.core.pipeline import run_pipeline
 from repro_torch.planner import CACHE_MODES, MODES, ResidencyPool
+from repro_torch.quant.codecs import CODECS, quantise_dense
 from repro_torch.serving.kvcache import BatchedCacheTables, PrefixCache
+from repro_torch.serving.pager import WeightPager
 
 
 @dataclasses.dataclass
@@ -52,6 +64,88 @@ def _not_ported(knob: str, value, slice_: str) -> NotImplementedError:
     return NotImplementedError(
         f"{knob}={value!r} is not ported yet: see ROADMAP.md next slice "
         f"{slice_}")
+
+
+class LazyEnv(dict):
+    """Environment that pages weight tables in on first Scan.
+
+    COL_CHUNK tables introduced by the layout planner are converted
+    *offline* into the pager's cold store (``RelationalEngine.
+    _register_layouts``), so they page through the same working-set budget
+    as every other weight — ``resolves_layouts`` tells
+    ``LayoutPlan.ensure_env`` not to materialise resident copies here.
+
+    ``table_sizes`` maps table names to planner-chosen physical chunk
+    sizes (``chunk_size="auto"``); tables absent there wrap at the
+    engine's base chunking.  ``quant_specs`` maps quantised table names to
+    ``(precision, chunk_size, schema)``: their packed integer codes and
+    per-group scales page as two cold entries (``name::q`` /
+    ``name::scale``) whose *quantised* byte sizes are what the pager
+    accounts.  Both dicts are shared by reference with the engine so
+    later-planned pipelines (prefill, batched decode) extend them in place.
+
+    A fetched table is wrapped where it lies, without a copy (the
+    reference goes through numpy): the cold store keeps the ``pad_to``
+    padding, so the chunk size divides the stored width and the chunked
+    table is a view of the pager's hot tensor.
+    """
+
+    resolves_layouts = True
+
+    def __init__(self, pager: WeightPager, chunk_size: int, make_table,
+                 table_sizes=None, quant_specs=None):
+        super().__init__()
+        self.pager = pager
+        self.cs = chunk_size
+        self.make_table = make_table
+        self.table_sizes = table_sizes if table_sizes is not None else {}
+        self.quant_specs = quant_specs if quant_specs is not None else {}
+
+    @property
+    def device(self):
+        """Where the fetched tables lie (``run_pipeline`` reads it)."""
+        return self.pager.device
+
+    def __missing__(self, key):
+        spec = self.quant_specs.get(key)
+        if spec is not None:
+            return self._quant_table(key, *spec)
+        arr = self.pager.get(key)
+        cs = self.table_sizes.get(key, self.cs)
+        # don't retain: the pager owns residency, we re-wrap per access
+        return self.make_table(key, arr, cs)
+
+    def _quant_table(self, key, precision, chunk_size, schema):
+        """Wrap a quantised table's paged code/scale tensors (codes stay
+        integer; the dequant happens inside the projection the planner
+        emitted).  Packed nf4 codes are unpacked on the device."""
+        codes = CODECS[precision].unpack(self.pager.get(key + "::q"),
+                                         chunk_size)
+        scales = self.pager.get(key + "::scale")
+        (q_col, q_type), (s_col, _) = schema.cols
+        want = tuple(s for _, s in schema.keys)
+        if tuple(codes.shape) != want + (chunk_size,):
+            raise ValueError(
+                f"quantised table {key!r}: stored code shape "
+                f"{tuple(codes.shape)} != schema {want + (chunk_size,)}")
+        return DenseTable(keys=schema.keys,
+                          cols={q_col: codes, s_col: scales},
+                          col_types={q_col: q_type, s_col: ra.SCALAR})
+
+    def __contains__(self, key):
+        return (dict.__contains__(self, key) or key in self.pager._cold
+                or key in self.quant_specs)
+
+    def copy(self):
+        new = LazyEnv(self.pager, self.cs, self.make_table,
+                      self.table_sizes, self.quant_specs)
+        new.update(self)
+        return new
+
+
+def _chunked_table(name, arr, cs):
+    return table_from_chunked(ChunkedTensor.from_dense(
+        name, arr, chunk_size=min(cs, arr.shape[-1]), device=arr.device))
 
 
 class RelationalEngine:
@@ -71,12 +165,26 @@ class RelationalEngine:
     f32 engine at construction.  The planned column, re-chunked and
     quantised tables are built once on the device beside the row tables.
 
+    ``residency="paged"`` (the paper's Disk+mem mode) keeps the weight
+    tables in a :class:`~repro_torch.serving.pager.WeightPager` cold store
+    (pinned host memory, or ``.npy`` files under ``disk_dir``) and pages
+    them into a device working set bounded by ``budget_bytes`` under
+    ``pager_policy`` (``"pin"``: MRU, or ``"clock"``).  The planner's
+    column and quantised twins are converted once into the cold store, on
+    the device one table at a time, and the planner prices its column
+    copies against the budget (``precision="auto"`` quantises to fit it).
+    ``shards`` is the reference's tensor-parallel planner axis: ``None``/1
+    runs unsharded, ``"auto"`` one shard a host core (the planner clamps
+    it), N > 1 splits the eligible matmul sites into N key-range slices
+    that a :class:`~repro_torch.serving.shards.ShardWorkerPool` runs on N
+    CUDA streams.
+
     ``device`` is where the weight tables, caches and every kernel live:
     the CUDA card unless the caller passes ``"cpu"``.  ``metrics`` is an
     optional ``repro_torch.obs.MetricsRegistry``: plan-cache lookups,
-    single-sequence decode step latency, re-plans and quantised bytes
-    here, decode ticks and the prefix cache in :class:`BatchedDecoder`,
-    requests in the scheduler.
+    single-sequence decode step latency, re-plans, quantised bytes and the
+    pager here, decode ticks and the prefix cache in
+    :class:`BatchedDecoder`, requests in the scheduler.
     """
 
     PRECISION_KNOBS = ("f32", "auto", "int8", "nf4")
@@ -101,14 +209,9 @@ class RelationalEngine:
         if precision not in self.PRECISION_KNOBS:
             raise ValueError(f"precision must be one of "
                              f"{self.PRECISION_KNOBS}, got {precision!r}")
-        if residency != "in_memory" or budget_bytes is not None or \
-                disk_dir is not None or pager_policy != "pin":
-            raise _not_ported("residency", residency, "N4 (pager)")
         if tracer is not None:
             raise _not_ported("tracer", tracer,
                               "N6 (observability and HTTP server)")
-        if shards not in (None, 0, 1):
-            raise _not_ported("shards", shards, "N7 (shards)")
         self.device = resolve_device(device)
         self._chunk_mode = "off"
         if chunk_size == "auto":
@@ -125,19 +228,40 @@ class RelationalEngine:
         self.max_len = max_len
         # zero-cost when None: every site guards with `is not None`
         self.metrics = metrics
+        # shards: None/1 keeps plans and execution identical to an
+        # unsharded engine; "auto" sizes the worker pool to the host's
+        # cores; N > 1 splits eligible matmul sites into N key-range shards
+        if shards in (None, 0, 1):
+            self.shards = 1
+        elif shards == "auto":
+            self.shards = max(1, os.cpu_count() or 1)
+        else:
+            self.shards = int(shards)
+            if self.shards < 1:
+                raise ValueError(f"shards must be >= 1, got {shards}")
+        self.shard_pool = None
+        self._shard_runner = None
+        self.residency = residency
         self.row2col = row2col
         self.precision = precision
         self._precision_mode = "off" if precision == "f32" else precision
         self._table_precisions = dict(table_precisions or {})
+        # quantised-table wrap specs shared by reference with the LazyEnv
+        # (paged residency): q_table -> (precision, chunk_size, schema)
+        self._quant_specs: Dict[str, tuple] = {}
         self._chunk_candidates = chunk_candidates
         self._cost_params = cost_params
-        # the paged residency budget (N4); in-memory residency is
-        # unbounded.  One ResidencyPool is shared by the decode and every
-        # prefill and batched plan: a column table one plan committed is
-        # free for the others, and its chunk size and precision are pinned
-        self._residency_budget = None
+        # paged residency: column copies compete with the working set, so
+        # the planner's residency pass runs under the pager budget;
+        # in-memory residency is unbounded.  One ResidencyPool is shared by
+        # the decode and every prefill and batched plan: a column table one
+        # plan committed is free for the others, and its chunk size and
+        # precision are pinned
+        self._residency_budget = (budget_bytes if residency != "in_memory"
+                                  else None)
         self._residency_pool = ResidencyPool(self._residency_budget)
-        # planner-chosen per-table chunk sizes, pinned for later plans
+        # planner-chosen per-table chunk sizes, pinned for later plans;
+        # shared by reference with the LazyEnv
         self._table_chunks: Dict[str, int] = {}
         # quantised-payload byte accounting for the metrics gauge (dedup
         # across the plans sharing q-tables)
@@ -166,12 +290,31 @@ class RelationalEngine:
                              else "row_chunk")
         self._prefill_cache_mode = ("off" if cache_layout == "off"
                                     else self.cache_layout)
-        self.env_base = lg.convert_weights(params, chunk_size=self.cs,
-                                           device=self.device)
+        if residency == "in_memory":
+            self.env_base = lg.convert_weights(params, chunk_size=self.cs,
+                                               device=self.device)
+            self.pager = None
+        else:
+            self.pager = WeightPager(budget_bytes or 1 << 62,
+                                     disk_dir=disk_dir, policy=pager_policy,
+                                     metrics=metrics, device=self.device)
+            for k, v in params.items():
+                self.pager.add(k, v)
+            self.env_base = LazyEnv(self.pager, self.cs, _chunked_table,
+                                    table_sizes=self._table_chunks,
+                                    quant_specs=self._quant_specs)
         self._register_layouts(self.decode_pipe)
-        # the gate builds a full f32 reference engine (a second weight copy
-        # and compile): an opt-in construction cost, skipped when the plan
-        # quantised nothing
+        if self.shards > 1:
+            from repro_torch.serving.shards import ShardWorkerPool
+            self.shard_pool = ShardWorkerPool(
+                self.shards, residency=residency, cs=self.cs,
+                budget_bytes=self._residency_budget,
+                pager_policy=pager_policy, device=self.device)
+            self._shard_runner = self.shard_pool.run_step
+        self._register_shards(self.decode_pipe)
+        # the gate builds a full in-memory f32 reference engine (a second
+        # weight copy and compile): an opt-in construction cost, skipped
+        # when the plan quantised nothing
         if accuracy_budget is not None and self._precision_mode != "off" \
                 and self.table_precision_choices:
             from repro_torch.quant.gate import check_accuracy
@@ -203,14 +346,18 @@ class RelationalEngine:
                                    self._table_chunks else None),
                      pool=self._residency_pool,
                      precision_mode=self._precision_mode,
-                     table_precisions=self._table_precisions or None)
+                     table_precisions=self._table_precisions or None,
+                     shards=self.shards if self.shards > 1 else None)
         return pipe
 
     def _register_layouts(self, pipe) -> None:
-        """Build a pipeline's planned tables into the resident weights
-        once (column twins, re-chunked row tables, quantised twins, on the
-        device: ``LayoutPlan.ensure_env``), record its per-table chunk
-        sizes, and count its quantised bytes for the metrics gauge."""
+        """Make a pipeline's planned tables resolvable, once: built into
+        the resident weights on the device (in-memory:
+        ``LayoutPlan.ensure_env``), or converted into the pager's cold
+        store (paged) — the offline ROW2COL and quantisation conversions,
+        so paged accesses stay zero-copy wraps under the same working-set
+        budget.  Records the pipeline's per-table chunk sizes and counts
+        its quantised bytes for the metrics gauge."""
         self._table_chunks.update(getattr(pipe, "table_chunks", {}) or {})
         plan = getattr(pipe, "layout_plan", None)
         if plan is None:
@@ -224,7 +371,63 @@ class RelationalEngine:
                 "engine_quantised_resident_bytes",
                 "stored bytes of quantised weight tables").set(
                     self._quant_bytes)
-        plan.ensure_env(self.env_base)
+        if self.pager is None:
+            plan.ensure_env(self.env_base)
+            return
+        # paged: each conversion runs on the device, one table at a time,
+        # and its result is copied back into the cold store (a transpose
+        # is exact, and the codes on the card equal the CPU's).  Column
+        # copies register padded to their chunk so the pager's byte
+        # accounting matches the physical working set; head-blocked tables
+        # transpose per head block ([H, dh, n] -> [H, n, dh])
+        pager = self.pager
+        for d in plan.col_decisions:
+            if d.col_table in pager._cold:
+                continue
+            dense = pager.cold_tensor(d.table).to(self.device)
+            dense = dense.transpose(1, 2) if d.is_head_site else dense.T
+            pager.add(d.col_table, dense.contiguous(),
+                      pad_to=d.physical_chunk)
+            del dense
+        # quantised payloads: each f32 source (row table, or the column
+        # copy registered just above) becomes packed codes + scales in the
+        # cold store; the paged working set then holds *quantised* bytes
+        for pd in plan.precision_decisions:
+            if pd.q_table in self._quant_specs:
+                continue
+            packed, scales = quantise_dense(
+                pager.cold_tensor(pd.table).to(self.device), pd.chunk_size,
+                CODECS[pd.precision])
+            pager.add(pd.q_table + "::q", packed)
+            pager.add(pd.q_table + "::scale", scales)
+            self._quant_specs[pd.q_table] = (pd.precision, pd.chunk_size,
+                                             pd.q_schema)
+
+    def _register_shards(self, pipe) -> None:
+        """Install a pipeline's shard-plan slices into the worker pool
+        (no-op unsharded).  Ranges depend only on the key-domain size
+        and N — identical across the decode/prefill/batched plans — so
+        the pool dedupes by shard table name."""
+        if self.shard_pool is None:
+            return
+        self.shard_pool.register_plan(
+            getattr(pipe, "shard_plan", None), env_base=self.env_base,
+            pager=self.pager, quant_specs=self._quant_specs,
+            table_chunks=self._table_chunks, cs=self.cs)
+
+    def merge_shard_metrics(self) -> None:
+        """Fold each worker's private metrics registry into the engine
+        registry under a ``shard`` label (call once at report time)."""
+        if self.shard_pool is not None and self.metrics is not None:
+            self.shard_pool.merge_metrics(self.metrics)
+
+    def merged_shard_trace(self):
+        """The reference's Chrome trace of the coordinator and the shard
+        workers: ``None`` here, where tracing is off (it is not ported,
+        see ROADMAP.md N6) or the engine is unsharded."""
+        if self.shard_pool is None:
+            return None
+        return self.shard_pool.merged_chrome_trace()
 
     def _plan_cache_event(self, cache: str, hit: bool) -> None:
         if self.metrics is not None:
@@ -242,6 +445,7 @@ class RelationalEngine:
                                        suffix=suffix),
                 cache_mode=self._prefill_cache_mode)
             self._register_layouts(pipe)
+            self._register_shards(pipe)
             self._prefill_pipes[key] = pipe
         return self._prefill_pipes[key]
 
@@ -255,6 +459,7 @@ class RelationalEngine:
                                       batch=batch),
                 cache_mode=self._prefill_cache_mode)
             self._register_layouts(pipe)
+            self._register_shards(pipe)
             self._batched_pipes[batch] = pipe
         return self._batched_pipes[batch]
 
@@ -266,8 +471,15 @@ class RelationalEngine:
             b *= 2
         return b
 
+    def _weights_env(self):
+        if self.pager is None:
+            return dict(self.env_base)
+        # .copy() keeps the LazyEnv and its shared table_sizes reference,
+        # so sessions wrap cold tables at the planner's chunk sizes
+        return self.env_base.copy()
+
     def _fresh_env(self):
-        env = dict(self.env_base)
+        env = self._weights_env()
         env.update(lg.empty_cache_tables(self.spec, cache_len=self.max_len,
                                          chunk_size=self.cs,
                                          layout=self.cache_layout,
@@ -304,6 +516,7 @@ class RelationalEngine:
             lg.build_decode_graph(self.spec, cache_len=self.max_len),
             cache_mode=self._prefill_cache_mode)
         self._register_layouts(pipe)
+        self._register_shards(pipe)
         self.decode_pipe = pipe
         self._prefill_pipes.clear()
         self._batched_pipes.clear()
@@ -326,8 +539,11 @@ class RelationalEngine:
         env["freq_each_token"] = lg.rope_freq_table(
             np.arange(T), self.spec.head_dim, self.spec.rope_theta,
             device=self.device)
+        if self.pager is not None:
+            self.pager.prefetch(["vocabulary"])
         outs, env = run_pipeline(self._prefill_pipe(T), env,
-                                 scalars={"cache_position": 0})
+                                 scalars={"cache_position": 0},
+                                 shard_runner=self._shard_runner)
         logits = self._final_logits(outs["logits"])
         return {"env": env, "pos": T, "tok": int(np.argmax(logits)),
                 "logits": logits}
@@ -357,15 +573,18 @@ class RelationalEngine:
             raise ValueError(
                 f"suffix prefill needs >= 1 new token: prompt length "
                 f"{len(prompt)} <= boundary {boundary}")
-        env = dict(self.env_base)
+        env = self._weights_env()
         env.update(cache_tables)
         env["token_ids"] = lg.token_table(np.asarray(prompt[boundary:]),
                                           device=self.device)
         env["freq_each_token"] = lg.rope_freq_table(
             np.arange(boundary, len(prompt)), self.spec.head_dim,
             self.spec.rope_theta, device=self.device)
+        if self.pager is not None:
+            self.pager.prefetch(["vocabulary"])
         outs, env = run_pipeline(self._prefill_pipe(T, suffix=True), env,
-                                 scalars={"cache_position": boundary})
+                                 scalars={"cache_position": boundary},
+                                 shard_runner=self._shard_runner)
         logits = self._final_logits(outs["logits"])
         return {"env": env, "pos": len(prompt),
                 "tok": int(np.argmax(logits)), "logits": logits}
@@ -384,7 +603,8 @@ class RelationalEngine:
             device=self.device)
         t0 = time.perf_counter() if self.metrics is not None else 0.0
         outs, env = run_pipeline(self.decode_pipe, env,
-                                 scalars={"cache_position": pos})
+                                 scalars={"cache_position": pos},
+                                 shard_runner=self._shard_runner)
         logits = self._final_logits(outs["logits"])
         if self.metrics is not None:
             self.metrics.histogram(
@@ -407,6 +627,10 @@ class RelationalEngine:
             tokens.append(self.session_step(sess))
         n_rest = max(1, max_new_tokens - 1)
         tpot = (time.perf_counter() - t1) / n_rest
+        if self.pager is not None:
+            return GenerationResult(tokens, ttft, tpot,
+                                    self.pager.stats.peak_bytes,
+                                    dataclasses.asdict(self.pager.stats))
         peak = sum(t.cols[c].numel() * t.cols[c].element_size()
                    for t in self.env_base.values() for c in t.cols)
         return GenerationResult(tokens, ttft, tpot, peak, None)
@@ -426,8 +650,7 @@ class RelationalEngine:
         (0 disables prefix caching); ``prefix_bind`` picks the segment
         bind mode (``"copy"`` / ``"share"`` / ``"auto"``);
         ``prefix_cache_bytes`` bounds the segment store (defaults to the
-        engine's paged residency budget, which the port does not have
-        yet: unbounded but for ``max_segments``)."""
+        engine's paged residency budget when one is set)."""
         return BatchedDecoder(self, max_seqs, prefix_block=prefix_block,
                               prefix_bind=prefix_bind,
                               prefix_cache_bytes=prefix_cache_bytes)
@@ -567,7 +790,7 @@ class BatchedDecoder:
         positions = self.pool.positions[np.asarray(ids)]
         view_key = (tuple(ids), self.pool.slot_generations(ids))
         view_hit = self._view_key == view_key
-        env = dict(eng.env_base)
+        env = eng._weights_env()
         if view_hit:
             env.update(self._views)  # unchanged batch: reuse last views
         else:
@@ -582,7 +805,8 @@ class BatchedDecoder:
             positions, eng.spec.head_dim, eng.spec.rope_theta, key="seq",
             device=eng.device)
         outs, env = run_pipeline(pipe, env,
-                                 scalars={"seq_positions": positions})
+                                 scalars={"seq_positions": positions},
+                                 shard_runner=eng._shard_runner)
         self.decode_calls += 1
         # the tick's only cache mutation is one appended row per sequence
         # at positions[b] — write back just those rows; the updated views

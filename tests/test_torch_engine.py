@@ -119,12 +119,13 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
         PagedKVCache(PagedKVConfig(n_layers=1, n_kv=1, head_dim=4), 1)
 
 
-@pytest.mark.parametrize("knob", [
-    dict(residency="paged"), dict(tracer=object()), dict(shards=2)])
+@pytest.mark.parametrize("knob", [dict(tracer=object())])
 def test_unported_knobs_raise(knob):
+    """Paged residency and shards are ported (tests/test_torch_pager.py,
+    tests/test_torch_shards.py); the tracer still names its slice."""
     kwargs = dict(chunk_size=8, max_len=16, device="cpu")
     kwargs.update(knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md next slice N6"):
         RelationalEngine(T_SPEC, PARAMS, **kwargs)
 
 

@@ -577,3 +577,140 @@ def test_codes_on_the_card_match_the_cpu(cuda, name):
     gc, gs = CODECS[name].quantise(data.to(cuda))
     assert int((gc.cpu() != cc).sum()) == 0
     assert torch.equal(gs.cpu(), cs)
+
+
+# ---------------------------------------------------------------------------
+# paged residency (WeightPager, LazyEnv) and the shard workers on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.serving.pager import WeightPager  # noqa: E402
+
+TINY = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv=2, d_ff=64,
+            rope_theta=10000.0)
+
+
+@pytest.mark.parametrize("row2col", ["off", "auto"])
+@pytest.mark.parametrize("disk", [False, True], ids=["pinned", "disk"])
+def test_paged_engine_on_the_card_matches_in_memory(cuda, tmp_path, row2col,
+                                                    disk):
+    """A budget of a fifth of the weights evicts in the middle of every
+    step: the paged engine's logits equal the in-memory engine's on the
+    card (bit for bit where both run one plan, ``row2col="off"``; within
+    1e-4 where the budget denies column copies), tokens too, and the
+    hot set never passes the budget."""
+    spec = LlamaSpec(**TINY)
+    params = init_llama_params(spec, seed=0)
+    total = sum(a.nbytes for a in params.values())
+    kw = dict(chunk_size=8, max_len=32, row2col=row2col, device=cuda)
+    inm = RelationalEngine(spec, params, **kw)
+    paged = RelationalEngine(spec, params, residency="paged",
+                             budget_bytes=total // 5,
+                             disk_dir=str(tmp_path) if disk else None, **kw)
+    prompt = [3, 17, 42, 5]
+    a, b = inm.start_session(prompt), paged.start_session(prompt)
+    for _ in range(4):
+        if row2col == "off":
+            np.testing.assert_array_equal(b["logits"], a["logits"])
+        np.testing.assert_allclose(b["logits"], a["logits"], rtol=1e-4,
+                                   atol=1e-4)
+        b["tok"] = a["tok"]
+        inm.session_step(a)
+        paged.session_step(b)
+    stats = paged.pager.stats
+    assert stats.evictions > 0 and stats.misses > 0
+    assert stats.peak_bytes <= total // 5
+    assert paged.generate(prompt, 6).tokens == inm.generate(prompt, 6).tokens
+
+
+def _pending_stream_work(ms: float = 50.0):
+    """Hold the current stream busy for about ``ms`` (a device spin), so
+    that what is enqueued next on it runs after the host has moved on."""
+    torch.cuda._sleep(int(ms * 1.98e6))
+
+
+def test_eviction_right_after_a_queued_read_keeps_the_bytes(cuda):
+    """Stress: each step fetches the next of three tables (a budget of
+    one), queues a K1 launch that reads it behind a device spin, and the
+    next step's fetch evicts it — the pager's only reference — while that
+    K1 still waits.  The step after allocates the third table: only
+    ``record_stream`` keeps the caching allocator from giving it the
+    evicted table's bytes before the queued K1 has read them."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    n, k = 1024, 4096
+    tables = [torch.randn(n, k, generator=gen, device=cuda).cpu()
+              for _ in range(3)]
+    nbytes = n * k * 4
+    pager = WeightPager(nbytes, policy="pin", device=cuda)
+    for i, t in enumerate(tables):
+        pager.add(f"w{i}", t)
+    x = torch.randn(4, k, generator=gen, device=cuda)
+    want = [chunked_matmul(x, t.to(cuda)) for t in tables]
+    outs = []
+    for step in range(24):
+        _pending_stream_work()
+        w = pager.get(f"w{step % 3}")  # evicts the table of the last step
+        outs.append((step % 3, chunked_matmul(x, w)))
+        del w
+    torch.cuda.synchronize()
+    assert pager.stats.evictions == 23 and pager.held_bytes <= nbytes
+    for name, got in outs:
+        assert torch.equal(got, want[name])
+
+
+def test_prefetched_entry_is_waited_on(cuda):
+    """The prefetch thread's copy is queued behind a spin on the pager's
+    stream and has not run when ``get`` takes the entry: the reading
+    stream waits on the entry's event and sees the table's values."""
+    gen = torch.Generator().manual_seed(8)
+    table = torch.randn(4096, 4096, generator=gen)
+    pager = WeightPager(1 << 30, device=cuda)
+    pager.add("w", table)
+    with torch.cuda.stream(pager._stream):
+        _pending_stream_work(100)
+    pager.prefetch(["w"]).join(timeout=60)
+    _, ready = pager._prefetched["w"]
+    assert not ready.query()  # the copy is still queued
+    got = pager.get("w")
+    assert pager.stats.prefetch_hits == 1 and pager.stats.misses == 0
+    assert torch.equal(got.cpu(), table)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("residency", ["in_memory", "paged"])
+def test_sharded_engine_on_the_card_matches_unsharded(cuda, n, residency):
+    """Workers on their own CUDA streams: the sharded engine's tokens equal
+    the unsharded engine's on the card, its logits within 1e-4 (partial
+    sums add in shard order), and each sharded site launches K1 once a
+    shard."""
+    spec = LlamaSpec(**dict(TINY, n_layers=1))
+    params = init_llama_params(spec, seed=0)
+    paged = (dict(residency="paged", budget_bytes=1 << 16)
+             if residency == "paged" else {})
+    kw = dict(chunk_size=4, max_len=16, device=cuda)
+    ref = RelationalEngine(spec, params, **kw)
+    eng = RelationalEngine(spec, params, shards=n, **dict(kw, **paged))
+    prompt = [3, 17, 42]
+    k1 = chunked_matmul.launches
+    a = ref.start_session(prompt)
+    k1_ref = chunked_matmul.launches - k1
+    k1 = chunked_matmul.launches
+    b = eng.start_session(prompt)
+    sites = eng.shard_pool.stats.sites
+    runs = sum(w.metrics.counter("shard_worker_runs_total").value
+               for w in eng.shard_pool.workers)
+    assert sites > 0 and runs > sites
+    assert chunked_matmul.launches - k1 == k1_ref + runs - sites
+    for _ in range(4):
+        np.testing.assert_allclose(b["logits"], a["logits"], rtol=1e-4,
+                                   atol=1e-4)
+        b["tok"] = a["tok"]
+        ref.session_step(a)
+        eng.session_step(b)
+    assert eng.generate(prompt, 6).tokens == ref.generate(prompt, 6).tokens
+    decs = [e.batched_decoder(2) for e in (ref, eng)]
+    last = [[d.prefill([1, 2, 3], 0), d.prefill([9, 8], 1)] for d in decs]
+    assert last[0] == last[1]
+    for _ in range(3):
+        last = [d.decode([0, 1], t) for d, t in zip(decs, last)]
+        assert last[0] == last[1]
+    eng.shard_pool.shutdown()
