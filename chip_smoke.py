@@ -22,14 +22,19 @@ cold requests (phase 5), chatbot traffic over a 448-token shared prefix
 through the prefix cache in both bind modes with a metrics registry
 attached (phase 6), the cold requests again with the weight tables paged
 from pinned host memory through a 16 GiB working set (phase 7), and again
-with 2 shards (phase 8).  Each serving run checks that every GEMM went
-through K1 ``chunked_matmul`` (once a shard at a sharded site), every
+with 2 shards (phase 8), and last through the HTTP server with a tracer,
+a metrics registry and the drift watchdog (phase 9: eight concurrent SSE
+streams through a page pool that forces preemption, shared-prefix traffic,
+the flight recorder's ``/debug/*`` endpoints, and the same streams again
+untraced for the tracer's cost).  Each serving run checks that every GEMM
+went through K1 ``chunked_matmul`` (once a shard at a sharded site), every
 decode attention (and one-token suffix) through K2 ``paged_attention``
 and every prefill attention (cold, or a suffix over a cached prefix)
 through K3 ``flash_attention``; phase 6 also checks the hits, the metrics
 and the tokens against a decoder without the cache; phases 7 and 8 hold
-one fixed prompt's logits to phase 5's.  Any failure exits non-zero.  The
-last line is ``{"ok": true, "device": {...}}``; the line before it lists
+one fixed prompt's logits to phase 5's; phase 9 holds the streams' tokens
+to ``generate`` and every flight-recorded tick's coverage to at least 0.9.
+Any failure exits non-zero.  The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels with their launches, errors and times (the per-shape times
 are printed in phase 3), and rows for K1's column layouts and shard
 slices and K2/K3 over the planned cache layout.
@@ -37,6 +42,7 @@ slices and K2/K3 over the planned cache layout.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import gc
 import importlib
@@ -146,9 +152,20 @@ SHARD_NS, SHARD_M = (2, 4), (1, 64)
 PHASE4_BUDGET, PAGED_BUDGET = 2 << 30, 16 << 30
 # phase 7 keeps this much host memory free beside its pinned cold store
 HOST_MARGIN = 8 << 30
-# phases 5, 7 and 8: the fixed prompt whose prefill and 4 decode steps are
-# compared across engines
+# phases 5, 7, 8 and 9: the fixed prompt whose prefill and 4 decode steps
+# are compared across engines
 FIXED_PROMPT_SEED, FIXED_STEPS = 7, 4
+# phase 9: HTTP serving.  Eight concurrent streams of 20-22-token prompts
+# and 12 new tokens (3 pages of 8 tokens at admission, 5 at the end),
+# through max_batch=3 and a pool of 12 pages, which three lockstep streams
+# outgrow: the batcher must preempt.  Then chatbot traffic over a shared
+# 64-token prefix: a donor, then three hits (a one-token suffix on K2,
+# longer ones on K3 with its offset), each of which fits the pool alone
+# (the scheduler spins on a request that can never fit).  The drift
+# watchdog checks every 8 ticks; the flight ring keeps every tick.
+HTTP_PAGE, HTTP_POOL, HTTP_STREAMS, HTTP_NEW = 8, 12, 8, 12
+HTTP_SHARED, HTTP_HIT_TAILS, HTTP_DRIFT_EVERY = 64, (1, 5, 8), 8
+HTTP_TIMEOUT_S = 600
 
 
 def log(msg: str = "") -> None:
@@ -839,12 +856,12 @@ def _counting_scans(eng):
     from repro_torch.core.relational import Scan
     inner, count, lock = ex.execute, [0], threading.Lock()
 
-    def counting(node, env, memo=None, scalars=None):
+    def counting(node, env, memo=None, scalars=None, tracer=None):
         if isinstance(node, Scan):
             gets = _gets_a_scan(eng, node.table)
             with lock:
                 count[0] += gets
-        return inner(node, env, memo, scalars)
+        return inner(node, env, memo, scalars, tracer)
 
     ex.execute = counting
     try:
@@ -1207,7 +1224,7 @@ def _serve_cold_requests(eng, tag: str):
     requests arrive.  Every kernel's count is zeroed just before the run
     and read just after: K1 7·L + 1 a pipeline call (N − 1 more a sharded
     site), K2 L a decode tick, K3 L a prefill.  Returns the launches, the
-    decoder and the scheduler."""
+    decoder, the KV page table and each request's (TTFT, TPOT) in ms."""
     from repro_torch import kernels
     from repro_torch.serving.kvcache import PagedKVCache, PagedKVConfig
     from repro_torch.serving.scheduler import ContinuousBatcher, Request
@@ -1278,12 +1295,14 @@ def _serve_cold_requests(eng, tag: str):
         f"layouts), paged_attention {launches['paged_attention']} = "
         f"{n_layers} x {decodes} decode ticks, flash_attention "
         f"{launches['flash_attention']} = {n_layers} x {prefills} prefills")
+    walls = {}
     for req in sorted(done, key=lambda r: r.rid):
         tpot = (req.done_s - req.first_token_s) / (len(req.generated) - 1)
+        walls[req.rid] = (req.first_token_s * 1e3, tpot * 1e3)
         log(f"  {tag} req{req.rid}: prompt {len(req.prompt)} tokens, ttft "
             f"{req.first_token_s * 1e3:.1f} ms, tpot {tpot * 1e3:.1f} ms, "
             f"tokens {req.generated}")
-    return launches, dec, kv
+    return launches, dec, kv, walls
 
 
 def _fixed_session(eng, tokens=None):
@@ -1333,7 +1352,7 @@ def phase_serving(n_layers: int):
     log(f"decode plan: {_plan_summary(eng)}; column twins "
         f"{twins / 1e9:.2f} GB; memory allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    launches, dec, kv = _serve_cold_requests(eng, "[phase 5]")
+    launches, dec, kv, walls = _serve_cold_requests(eng, "[phase 5]")
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
     tick = profile_tick(dec)
@@ -1343,7 +1362,7 @@ def phase_serving(n_layers: int):
     log(f"fixed prompt (seed {FIXED_PROMPT_SEED}): prefill T=32 + "
         f"{FIXED_STEPS} decode steps, tokens {fixed[1]}")
     torch.cuda.empty_cache()
-    return launches, eng, fixed, tick
+    return launches, eng, fixed, tick, walls
 
 
 def _hold_to_fixed(eng, fixed, tag: str) -> float:
@@ -1472,7 +1491,7 @@ def phase_paged_serving(fixed):
         f"of column copies ({len(pool.tables)} tables); working set of the "
         f"decode plan {_working_set(eng) / 1e9:.2f} GB")
     stats0 = dict(vars(pager.stats))
-    launches, dec, kv = _serve_cold_requests(eng, "[phase 7]")
+    launches, dec, kv, _ = _serve_cold_requests(eng, "[phase 7]")
     calls = (launches["flash_attention"]
              + launches["paged_attention"]) // n_layers
     stats = {k: v - stats0[k] if k != "peak_bytes" else v
@@ -1532,7 +1551,7 @@ def phase_sharded_serving(fixed, tick5, n_shards: int = 2):
         f"{_plan_summary(eng)}; sharded sites {kinds}; memory allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (the slices are "
         f"views)")
-    launches, dec, kv = _serve_cold_requests(eng, "[phase 8]")
+    launches, dec, kv, _ = _serve_cold_requests(eng, "[phase 8]")
     log(f"[phase 8] max memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; pool: "
         f"{eng.shard_pool.stats.sites} sites fanned out, worker busy "
@@ -1552,6 +1571,359 @@ def phase_sharded_serving(fixed, tick5, n_shards: int = 2):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, {"tick": tick, "max_abs_logit": diff}
+
+
+@contextlib.contextmanager
+def _http_server(eng, metrics, tracer, drift_every=0, n_pages=HTTP_POOL):
+    """An ``AsyncLLMServer`` over ``eng`` on an ephemeral port, its event
+    loop and scheduler in threads of their own (the scheduler makes the
+    engine's card current there), over ``n_pages`` KV pages; shut down on
+    leaving, whatever happened."""
+    from repro_torch.serving.kvcache import PagedKVCache, PagedKVConfig
+    from repro_torch.serving.server import AsyncLLMServer, ServerConfig
+    spec = eng.spec
+    kv = PagedKVCache(PagedKVConfig(
+        n_layers=spec.n_layers, n_kv=spec.n_kv, head_dim=spec.head_dim,
+        page_size=HTTP_PAGE, n_pages=n_pages,
+        max_pages_per_seq=eng.max_len // HTTP_PAGE), max_seqs=8,
+        device=eng.device)
+    cfg = ServerConfig(port=0, max_batch=3, max_queue_depth=32,
+                       flight_capacity=4096, drift_every=drift_every)
+    srv = AsyncLLMServer(eng, kv, cfg, metrics=metrics, tracer=tracer)
+    srv.start_in_thread()
+    try:
+        yield srv
+    finally:
+        srv.shutdown()
+
+
+def _http_streams(srv, prompts, n_new):
+    """Concurrent SSE completions, each stream consumed to its end."""
+    from repro_torch.serving import client
+
+    async def drive():
+        return await asyncio.wait_for(asyncio.gather(*(
+            client.stream_completion(srv.cfg.host, srv.port,
+                                     {"prompt": p, "max_tokens": n_new})
+            for p in prompts)), HTTP_TIMEOUT_S)
+    results = asyncio.run(drive())
+    for r in results:
+        assert r.status == 200, (r.status, r.error)
+        # SSE chunks in order, no gap, no duplicate
+        assert r.token_indices == list(range(n_new)), r.token_indices
+    return results
+
+
+def _http_get(srv, path: str):
+    from repro_torch.serving import client
+    resp = asyncio.run(client.request(srv.cfg.host, srv.port, "GET", path))
+    assert resp.status == 200, (path, resp.status, resp.body[:300])
+    return resp
+
+
+def _decode_walls(srv):
+    """Host wall (ms) of every decode tick the server's flight ring holds."""
+    return [t.wall_us / 1e3 for t in srv.flight.ticks() if t.kind == "decode"]
+
+
+def _tick_gaps(t, n: int = 4):
+    """The ``n`` longest stretches of a flight tick's wall outside its
+    top-level spans, in ms, each named by the spans around it."""
+    spans = sorted((s for s in t.spans if s.depth == 0),
+                   key=lambda s: s.ts_us)
+    gaps, end, before = [], t.ts_us, "<tick>"
+    for sp in spans:
+        gaps.append(((sp.ts_us - end) / 1e3, f"{before} -> {sp.name}"))
+        end, before = max(end, sp.ts_us + sp.dur_us), sp.name
+    gaps.append(((t.ts_us + t.wall_us - end) / 1e3, f"{before} -> <end>"))
+    return [(round(ms, 2), where) for ms, where in sorted(gaps)[::-1][:n]]
+
+
+def _step_families(srv):
+    """Mean ms a decode tick spends in each family of top-level spans
+    (pipeline steps by name without their counter or layer suffix, the
+    decoder's phases, plan compiles) over the flight ring's decode ticks,
+    largest first."""
+    ticks = [t for t in srv.flight.ticks() if t.kind == "decode"]
+    fam = {}
+    for t in ticks:
+        for sp in t.spans:
+            if sp.depth:
+                continue
+            name = sp.name.split(":")[0]
+            parts = name.split("_")
+            while len(parts) > 1 and (parts[-1].isdigit() or (
+                    parts[-1][:1] == "L" and parts[-1][1:].isdigit())):
+                parts.pop()
+            key = f"{sp.cat}:{'_'.join(parts)}"
+            fam[key] = fam.get(key, 0.0) + sp.dur_us / 1e3 / len(ticks)
+    return sorted(fam.items(), key=lambda kv: -kv[1])
+
+
+def _stream_walls(results):
+    """Each stream's client-side TTFT and TPOT in ms (connect to first
+    chunk; the rest over the remaining tokens)."""
+    return [(r.ttft_s * 1e3,
+             (r.total_s - r.ttft_s) / max(1, len(r.tokens) - 1) * 1e3)
+            for r in results]
+
+
+def _http_traffic(vocab: int):
+    """Phase 9's prompts: the eight preempted streams, the shared-prefix
+    donor and hits, and phase 5's request set."""
+    rng = np.random.default_rng(9)
+    streams = [[int(t) for t in rng.integers(0, vocab, 20 + i % 3)]
+               for i in range(HTTP_STREAMS)]
+    shared = [int(t) for t in rng.integers(0, vocab, HTTP_SHARED)]
+    donor = shared + [int(t) for t in rng.integers(0, vocab, 4)]
+    hits = [shared + [int(t) for t in rng.integers(0, vocab, n)]
+            for n in HTTP_HIT_TAILS]
+    rng = np.random.default_rng(2)  # phase 5's draw
+    cold5 = [[int(t) for t in rng.integers(0, vocab, n)]
+             for n in (32, 64, 32, 64)]
+    return streams, donor, hits, cold5
+
+
+def serve_http(eng):
+    """Phase 9's traffic through the HTTP server over ``eng`` (which has a
+    tracer and a metrics registry attached): the eight preempted streams,
+    then the shared-prefix donor and hits, with the tracer and the drift
+    watchdog on; then, with the tracer off, the eight streams again and
+    phase 5's request set.  Every check of the phase is here; returns the
+    kernels' launches over both servers and a summary."""
+    from repro_torch import kernels
+    from repro_torch.core.pipeline import step_span_args
+    from repro_torch.obs import MetricsRegistry, set_flight_recorder
+    tracer, reg = eng.tracer, eng.metrics
+    streams, donor, hits, cold5 = _http_traffic(eng.spec.vocab)
+    prompts = streams + [donor] + hits
+    # the references (the same engine's generate, untraced) and the plans
+    # the traffic needs, compiled before the requests arrive; a re-plan of
+    # the watchdog recompiles inside ticks, under compile spans
+    eng.tracer = None
+    t0 = time.perf_counter()
+    refs = [eng.generate(p, HTTP_NEW).tokens for p in prompts]
+
+    def compile_plans():
+        for n in sorted({len(p) for p in prompts + cold5}):
+            eng._prefill_pipe(n)
+        for n in HTTP_HIT_TAILS:
+            eng._prefill_pipe(n, True)
+        for bucket in (1, 2, 4):
+            eng._batched_decode_pipe(bucket)
+    compile_plans()
+    # the step spans' provenance of these plans, which a traced compile
+    # derives with the plan
+    for pipe in [*eng._prefill_pipes.values(),
+                 *eng._batched_pipes.values()]:
+        step_span_args(pipe)
+    log(f"[phase 9] references ({len(prompts)} x generate, {HTTP_NEW} "
+        f"tokens) and plans in {time.perf_counter() - t0:.1f} s")
+    eng.tracer = tracer
+    tracer.clear()
+
+    wrappers = [getattr(kernels, name) for name in KERNELS]
+    for fn in wrappers:
+        fn.launches = fn.calls = 0
+    kernels.chunked_matmul.col_launches = 0
+    # the cyclic collector's pauses on the tracer's timeline: the flight
+    # ring retains every tick's spans, and a full collection walks them
+    pauses, opened = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            opened["t"] = tracer._now_us()
+        elif "t" in opened:
+            pauses.append((opened.pop("t"), tracer._now_us(),
+                           info["generation"]))
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    with _http_server(eng, reg, tracer,
+                      drift_every=HTTP_DRIFT_EVERY) as srv:
+        got = _http_streams(srv, streams, HTTP_NEW)
+        preempted = srv.batcher.stats.preemptions
+        traced_walls = _decode_walls(srv)
+        families = _step_families(srv)
+        got += _http_streams(srv, [donor], HTTP_NEW)
+        got += _http_streams(srv, hits, HTTP_NEW)
+        scrape = _http_get(srv, "/metrics").body.decode()
+        flight = _http_get(srv, "/debug/flight").json()
+        trace = _http_get(srv, f"/debug/trace/{got[0].trace_id}").json()
+        drift = _http_get(srv, "/debug/drift").json()
+        stats = vars(srv.batcher.stats).copy()
+        # the least-attributed ticks, with where their time went unnamed
+        low_ticks = [(t.kind, t.tick, t.coverage(), t.ts_us, t.wall_us,
+                      t.named_us(), _tick_gaps(t)) for t in sorted(
+                          (t for t in srv.flight.ticks()
+                           if t.kind != "admission"),
+                          key=lambda t: t.coverage())[:4]]
+        trace = {"ticks": trace["ticks"], "wall_us": trace["wall_us"],
+                 "coverage": trace["coverage"],
+                 "events": len(trace["traceEvents"]),
+                 "cats": {e["cat"] for e in trace["traceEvents"]}}
+    gc.callbacks.remove(on_gc)
+    traced_s = time.perf_counter() - t0
+    # the traced server's flight ring is gone: collect its spans now, so
+    # the untraced runs are not charged for them, and recompile what a
+    # re-plan of the watchdog dropped
+    eng.tracer = None
+    gc.collect()
+    compile_plans()
+    t0 = time.perf_counter()
+    with _http_server(eng, MetricsRegistry(), None) as srv:
+        plain = _http_streams(srv, streams, HTTP_NEW)
+        plain_walls = _decode_walls(srv)
+        plain_preempted = srv.batcher.stats.preemptions
+    # phase 5's request set, with phase 5's room in the page pool
+    with _http_server(eng, MetricsRegistry(), None, n_pages=128) as srv:
+        served5 = _http_streams(srv, cold5, 8)
+        assert srv.batcher.stats.preemptions == 0
+    untraced_s = time.perf_counter() - t0
+    set_flight_recorder(None)
+    cuda = eng.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+    launches["chunked_matmul_col"] = kernels.chunked_matmul.col_launches
+    if cuda:
+        assert all(fn.calls == fn.launches for fn in wrappers), [
+            (fn.calls, fn.launches) for fn in wrappers]
+    log(f"[phase 9] traced server: {len(got)} streams in {traced_s:.1f} s, "
+        f"scheduler {stats}; untraced server: {len(plain) + len(served5)} "
+        f"streams in {untraced_s:.1f} s; launches {launches}")
+
+    # the batcher preempted, and every stream's tokens equal generate's
+    # where every step's top-2 margin exceeds 1e-3 (phase 5's rule)
+    assert preempted > 0 and plain_preempted > 0, (preempted,
+                                                   plain_preempted)
+    worst = []
+    for tag, served in (("traced", got), ("untraced", plain)):
+        for i, (p, r) in enumerate(zip(prompts, served)):
+            div = _first_divergence(eng, p, refs[i], r.tokens)
+            if div is not None:
+                assert div[1] <= 1e-3, (tag, i, div)
+                worst.append((tag, i, *div))
+    log(f"[phase 9] preemptions {preempted} traced, {plain_preempted} "
+        f"untraced; tokens against generate: " + (
+            "identical" if not worst else
+            f"first divergences (run, stream, step, top-2 margin) {worst}, "
+            f"each at a margin <= 1e-3, the comparison stopped there"))
+    hits_line = [line for line in scrape.splitlines() if line.startswith(
+        'serving_prefills_total{kind="prefix_hit"}')]
+    assert hits_line and float(hits_line[0].split()[-1]) > 0, scrape
+    for line in scrape.splitlines():
+        if line.startswith(("serving_prefills_total",
+                            "drift_watchdog_", "engine_replans_total")):
+            log(f"  [phase 9] scrape: {line}")
+    # the flight recorder attributes every tick (the reference's bar)
+    ticks = flight["ticks"]
+    low = [(t["kind"], t["tick"], round(t["coverage"], 4)) for t in ticks
+           if t["coverage"] < 0.9]
+    by_kind = {}
+    for t in ticks:
+        by_kind.setdefault(t["kind"], []).append(t["coverage"])
+    coverage = {k: {"ticks": len(v), "min": min(v),
+                    "median": statistics.median(v)}
+                for k, v in by_kind.items()}
+    log(f"[phase 9] /debug/flight: {flight['retained_ticks']} ticks "
+        f"retained, coverage by kind {coverage}")
+    full = [(a, b) for a, b, gen in pauses if gen == 2]
+    log(f"[phase 9] cyclic GC during the traced run: {len(pauses)} "
+        f"collections, {len(full)} full, full pauses "
+        f"{sorted(round((b - a) / 1e3, 1) for a, b in full)} ms")
+    for kind, tick, cov, ts, wall, named, gaps in low_ticks:
+        in_gc = sum(max(0.0, min(b, ts + wall) - max(a, ts))
+                    for a, b, _ in pauses)
+        log(f"  [phase 9] {kind} tick {tick}: coverage {cov:.4f}, wall "
+            f"{wall / 1e3:.1f} ms, unattributed {(wall - named) / 1e3:.1f} "
+            f"ms, of it inside GC pauses at most {in_gc / 1e3:.1f} ms; "
+            f"longest unnamed stretches (ms) {gaps}")
+    assert not low, low
+    # one request rebuilt end to end from the flight ring
+    kinds, cats = [t["kind"] for t in trace["ticks"]], trace["cats"]
+    assert kinds[0] == "admission" and "prefill" in kinds \
+        and "decode" in kinds, kinds
+    assert {"step", "op"} <= cats, cats
+    log(f"[phase 9] /debug/trace/{got[0].trace_id}: ticks {kinds}, "
+        f"{trace['events']} events, categories {sorted(cats)}, "
+        f"wall {trace['wall_us'] / 1e3:.1f} ms, coverage "
+        f"{trace['coverage']:.4f}")
+    assert drift.get("every") == HTTP_DRIFT_EVERY and drift["ticks"] > 0, \
+        drift
+    log(f"[phase 9] /debug/drift: ticks {drift['ticks']}, checks "
+        f"{drift['checks']}, replans {drift['replans']} (engine "
+        f"{drift['engine_replans']}), errors {drift['errors']}, last rms "
+        f"relative drift " + (f"{drift['last_report']['rms_rel_drift']:.3f}"
+                              if drift["last_report"] else "none"))
+    assert drift["errors"] == 0, drift
+    # the tracer's cost: the same traffic's decode ticks with and without
+    traced_ms = statistics.median(traced_walls)
+    plain_ms = statistics.median(plain_walls)
+    log(f"[phase 9] decode tick of the eight streams: traced median "
+        f"{traced_ms:.2f} ms over {len(traced_walls)} ticks, untraced "
+        f"{plain_ms:.2f} ms over {len(plain_walls)} ticks "
+        f"({traced_ms / plain_ms:.2f}x)")
+    log("[phase 9] where a traced decode tick's time goes (mean ms a "
+        "tick, top-level spans by family; steps end in a synchronise):")
+    for key, ms in families[:14]:
+        log(f"  {ms:9.3f} ms  {key}")
+    walls9 = _stream_walls(served5)
+    for i, (ttft, tpot) in enumerate(walls9):
+        log(f"  [phase 9] phase 5's req{i} through HTTP, untraced: ttft "
+            f"{ttft:.1f} ms, tpot {tpot:.1f} ms")
+    return launches, {
+        "decode_tick_traced_ms": traced_ms,
+        "decode_tick_untraced_ms": plain_ms,
+        "ticks_traced": len(traced_walls), "ticks_untraced": len(plain_walls),
+        "coverage": coverage, "preemptions": preempted,
+        "gc_full_pauses_ms": sorted((b - a) / 1e3 for a, b in full),
+        "traced_tick_families_ms": dict(families[:14]),
+        "prefix_hits": float(hits_line[0].split()[-1]),
+        "watchdog": {k: drift[k] for k in ("ticks", "checks", "replans")},
+        "http_ttft_tpot_ms": walls9,
+        "streams_traced_ttft_tpot_ms": _stream_walls(got[:HTTP_STREAMS]),
+        "streams_untraced_ttft_tpot_ms": _stream_walls(plain),
+        "token_divergences": worst}
+
+
+def phase_http_serving(fixed, walls5):
+    """HTTP serving at Llama-3-8B width and depth under the reference's
+    defaults, in memory, with a ``TraceRecorder`` and a
+    ``MetricsRegistry`` attached and the drift watchdog armed: the fixed
+    prompt held to phase 5's logits with the tracer on, then
+    :func:`serve_http`; phase 5's request set through HTTP beside phase 5's
+    TTFT and TPOT."""
+    from repro_torch.core.llama_graph import init_llama_tensors
+    from repro_torch.obs import MetricsRegistry, TraceRecorder
+    from repro_torch.serving.engine import RelationalEngine
+    log(f"== phase 9: HTTP serving at Llama-3-8B width, {N_LAYERS} layers, "
+        f"traced, the drift watchdog every {HTTP_DRIFT_EVERY} ticks")
+    spec = _spec(N_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = RelationalEngine(spec, init_llama_tensors(spec, seed=0,
+                                                    device="cuda"),
+                           chunk_size=64, max_len=512,
+                           metrics=MetricsRegistry(), tracer=TraceRecorder(),
+                           device="cuda")
+    torch.cuda.synchronize()
+    log(f"engine built in {time.perf_counter() - t0:.1f} s; decode plan: "
+        f"{_plan_summary(eng)}; memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    diff = _hold_to_fixed(eng, fixed, "[phase 9, traced]")
+    launches, summary = serve_http(eng)
+    for rid, (ttft, tpot) in walls5.items():
+        log(f"  [phase 9] req{rid}: phase 5 (ContinuousBatcher, no HTTP) "
+            f"ttft {ttft:.1f} ms, tpot {tpot:.1f} ms; through HTTP ttft "
+            f"{summary['http_ttft_tpot_ms'][rid][0]:.1f} ms, tpot "
+            f"{summary['http_ttft_tpot_ms'][rid][1]:.1f} ms")
+    log(f"[phase 9] max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["max_abs_logit_traced"] = diff
+    return launches, summary
 
 
 def _compile_logged(eng, label, compile_fn, *args):
@@ -1814,7 +2186,8 @@ def main() -> int:
                                    phase_shard_kernels, flush)
     del flush
     _, phase4_shard_launches = timed("phase 4", phase_engine_parity)
-    serving, eng, fixed, tick5 = timed("phase 5", phase_serving, N_LAYERS)
+    serving, eng, fixed, tick5, walls5 = timed("phase 5", phase_serving,
+                                               N_LAYERS)
     prefix, _ = timed("phase 6", phase_prefix_serving, eng)
     cache_layout = eng.cache_layout
     del eng
@@ -1822,12 +2195,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     paged, paged_summary = timed("phase 7", phase_paged_serving, fixed)
     sharded, _ = timed("phase 8", phase_sharded_serving, fixed, tick5)
+    http, http_summary = timed("phase 9", phase_http_serving, fixed, walls5)
     # each main path's counts, zeroed just before it and read just after:
     # phase 5's cold serving, phase 6's prefix-cached serving per bind mode,
-    # phase 7's paged serving and phase 8's sharded serving
+    # phase 7's paged serving, phase 8's sharded serving and phase 9's HTTP
+    # serving (traced and untraced)
     paths = {"serving": serving, "prefix_serving_copy": prefix["copy"],
              "prefix_serving_share": prefix["share"],
-             "paged_serving": paged, "sharded_serving": sharded}
+             "paged_serving": paged, "sharded_serving": sharded,
+             "http_serving": http}
     counted = KERNELS + ("chunked_matmul_col",)
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counted}
@@ -1957,6 +2333,7 @@ def main() -> int:
                          f"summed from shard 0's per-shape medians; library: "
                          f"torch.matmul on the same views"})
     log(f"phase 7 (paged): {json.dumps(paged_summary)}")
+    log(f"phase 9 (HTTP): {json.dumps(http_summary)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -43,7 +43,7 @@ import dataclasses
 import math
 import operator
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -247,6 +247,14 @@ OP_CLASSES = {
 }
 
 
+def _plan_kids(node: RelNode) -> tuple:
+    if isinstance(node, (Project, Filter, Unnest, Collect, GroupAgg)):
+        return (node.input,)
+    if isinstance(node, Join):
+        return (node.left, node.right)
+    return ()
+
+
 def iter_plan_nodes(root: RelNode):
     """Every distinct node of a relational plan, root first.  Plans are
     DAGs (downstream steps embed upstream roots); tracking visited ids
@@ -256,13 +264,7 @@ def iter_plan_nodes(root: RelNode):
     while stack:
         node = stack.pop()
         yield node
-        if isinstance(node, (Project, Filter, Unnest, Collect, GroupAgg)):
-            kids = (node.input,)
-        elif isinstance(node, Join):
-            kids = (node.left, node.right)
-        else:
-            kids = ()
-        for kid in kids:
+        for kid in _plan_kids(node):
             if id(kid) not in seen:
                 seen.add(id(kid))
                 stack.append(kid)
@@ -282,6 +284,44 @@ def plan_provenance(root: RelNode) -> Tuple[Tuple[str, ...],
         if isinstance(node, Scan):
             tables.add(node.table)
     return tuple(sorted(ops)), tuple(sorted(tables))
+
+
+def steps_provenance(roots) -> List[Tuple[Tuple[str, ...],
+                                          Tuple[str, ...]]]:
+    """``plan_provenance`` of each root in ``roots`` (a pipeline's step
+    plans), in one pass over their shared DAG.  A step's plan embeds the
+    upstream steps' roots, so walking each step anew is quadratic in
+    depth; here each node's (op classes, tables) is built once from its
+    inputs', reusing an input's sets where the node adds nothing to
+    them."""
+    memo: Dict[int, tuple] = {}
+    out = []
+    for root in roots:
+        stack = [(root, False)]
+        while stack:
+            node, ready = stack.pop()
+            if id(node) in memo:
+                continue
+            kids = _plan_kids(node)
+            if not ready:
+                stack.append((node, True))
+                stack.extend((k, False) for k in kids if id(k) not in memo)
+                continue
+            op = classify_plan_node(node)
+            if not kids:
+                memo[id(node)] = (frozenset((op,)), frozenset(
+                    (node.table,) if isinstance(node, Scan) else ()))
+                continue
+            ops, tables = memo[id(kids[0])]
+            for kid in kids[1:]:
+                k_ops, k_tables = memo[id(kid)]
+                ops, tables = ops | k_ops, tables | k_tables
+            if op not in ops:
+                ops = ops | {op}
+            memo[id(node)] = (ops, tables)
+        ops, tables = memo[id(root)]
+        out.append((tuple(sorted(ops)), tuple(sorted(tables))))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -663,7 +703,8 @@ def _rows(t: torch.Tensor, m: int, k: int) -> torch.Tensor:
     return _unit_inner(t.reshape(m, k))
 
 
-def _try_fused_join_agg(node: GroupAgg, env, memo, scalars=None):
+def _try_fused_join_agg(node: GroupAgg, env, memo, scalars=None,
+                        tracer=None):
     """Recognise γ_{G, SUM(f(l_col, r_col))}(L ⋈ R) and run it fused.
 
     Conditions: single SUM aggregate whose expression is ``dot(a, b)``,
@@ -698,8 +739,8 @@ def _try_fused_join_agg(node: GroupAgg, env, memo, scalars=None):
         return None
 
     join = node.input
-    left = execute(join.left, env, memo, scalars)
-    right = execute(join.right, env, memo, scalars)
+    left = execute(join.left, env, memo, scalars, tracer)
+    right = execute(join.right, env, memo, scalars, tracer)
     if a.name in left.cols and b.name in right.cols:
         lcol, rcol = a.name, b.name
     elif b.name in left.cols and a.name in right.cols:
@@ -977,7 +1018,8 @@ def _identity_page_table(n_seq: int, n_pages: int, device) -> torch.Tensor:
     return _PAGE_TABLES[k]
 
 
-def _try_fused_attention(node: GroupAgg, env, memo, scalars=None):
+def _try_fused_attention(node: GroupAgg, env, memo, scalars=None,
+                         tracer=None):
     """Run a matched attention subplan on one kernel; None if ``node`` is
     not one.
 
@@ -999,11 +1041,13 @@ def _try_fused_attention(node: GroupAgg, env, memo, scalars=None):
     site = _attention_site(node)
     if site is None:
         return None
-    qt = execute(site.q, env, memo, scalars)
+    qt = execute(site.q, env, memo, scalars, tracer)
     lead = ("seq",) if site.kind == "batched" else ()
     row_order = lead + _CACHE_ORDERS[0]
-    kt = permute_table_keys(execute(site.k, env, memo, scalars), row_order)
-    vt = permute_table_keys(execute(site.v, env, memo, scalars), row_order)
+    kt = permute_table_keys(execute(site.k, env, memo, scalars, tracer),
+                            row_order)
+    vt = permute_table_keys(execute(site.v, env, memo, scalars, tracer),
+                            row_order)
     row_major = site.k.table_schema.key_names == row_order
     d = site.head_dim
     nq, n_heads = qt.key_sizes[0], qt.key_sizes[1]
@@ -1052,13 +1096,22 @@ def _try_fused_attention(node: GroupAgg, env, memo, scalars=None):
 
 def execute(node: RelNode, env: Dict[str, DenseTable],
             memo: Optional[Dict[int, DenseTable]] = None,
-            scalars: Optional[Dict] = None) -> DenseTable:
+            scalars: Optional[Dict] = None, tracer=None) -> DenseTable:
     """Execute a relational plan against ``env`` (table name → DenseTable).
 
     Scan nodes are never memoised (cache tables change between pipeline
     steps); every other node is memoised by identity so shared subplans
     across steps evaluate once.  ``scalars`` holds the runtime parameters:
     Python ints for ``Param`` and int64 device tensors for ``KeyParam``.
+
+    ``tracer`` (an ``Optional[repro_torch.obs.trace.TraceRecorder]``)
+    records one ``cat="op"`` span per executed plan node, as the
+    reference does.  Kernel launches are asynchronous, so an op span
+    measures dispatch; step-level wall time comes from ``run_pipeline``'s
+    ``cat="step"`` spans, which synchronise.  A fused subplan (a matmul
+    site on K1, an attention subplan on K2 or K3) is one span: the nodes
+    it replaces are not executed, so they have none.  With
+    ``tracer=None`` the only cost is this ``None`` check.
     """
     if memo is None:
         memo = {}
@@ -1080,9 +1133,39 @@ def execute(node: RelNode, env: Dict[str, DenseTable],
         return t
     if id(node) in memo:
         return memo[id(node)]
-    out = _execute(node, env, memo, scalars)
+    if tracer is None:
+        out = _execute(node, env, memo, scalars)
+    else:
+        # the span folds in the ambient TraceContext (request ids)
+        with tracer.span(classify_plan_node(node), cat="op",
+                         **_op_span_args(node)):
+            out = _execute(node, env, memo, scalars, tracer)
     memo[id(node)] = out
     return out
+
+
+# id(node) → (weak reference to the node, its op span's args)
+_OP_SPAN_ARGS: Dict[int, tuple] = {}
+
+
+def _op_span_args(node: RelNode) -> Dict:
+    """An op span's args (the node's type, and the tables its direct Scan
+    inputs read, so a request's dump names the stored tables each op
+    read), built once per plan node: the spans of every execution share
+    the ``tables`` list, which keeps a retained span to two objects for
+    the cyclic collector to walk."""
+    entry = _OP_SPAN_ARGS.get(id(node))
+    if entry is not None and entry[0]() is node:
+        return entry[1]
+    kids = _plan_kids(node)
+    tables = sorted({c.table for c in kids if isinstance(c, Scan)})
+    args = {"node": type(node).__name__}
+    if tables:
+        args["tables"] = tables
+    key = id(node)
+    _OP_SPAN_ARGS[key] = (
+        weakref.ref(node, lambda _: _OP_SPAN_ARGS.pop(key, None)), args)
+    return args
 
 
 _REDUCE = {"SUM": torch.sum, "MAX": torch.amax, "MIN": torch.amin,
@@ -1091,10 +1174,11 @@ _COMPARE = {"<=": torch.le, "<": torch.lt, "==": torch.eq, ">=": torch.ge,
             ">": torch.gt}
 
 
-def _execute(node: RelNode, env, memo, scalars=None) -> DenseTable:
+def _execute(node: RelNode, env, memo, scalars=None,
+             tracer=None) -> DenseTable:
 
     if isinstance(node, Project):
-        t = execute(node.input, env, memo, scalars)
+        t = execute(node.input, env, memo, scalars, tracer)
         schema = resolve(node)
         cols, col_types = {}, {}
         for (cname, _, e), (_, ctype) in zip(node.exprs, schema.cols):
@@ -1108,8 +1192,8 @@ def _execute(node: RelNode, env, memo, scalars=None) -> DenseTable:
         return DenseTable(keys=schema.keys, cols=cols, col_types=col_types)
 
     if isinstance(node, Join):
-        left = execute(node.left, env, memo, scalars)
-        right = execute(node.right, env, memo, scalars)
+        left = execute(node.left, env, memo, scalars, tracer)
+        right = execute(node.right, env, memo, scalars, tracer)
         schema = resolve(node)
         out_cols, out_types = {}, {}
         surv = [(k, s) for k, s in right.keys if k not in dict(node.on)]
@@ -1132,12 +1216,13 @@ def _execute(node: RelNode, env, memo, scalars=None) -> DenseTable:
         return DenseTable(keys=schema.keys, cols=out_cols, col_types=out_types)
 
     if isinstance(node, GroupAgg):
-        fused = _try_fused_attention(node, env, memo, scalars)
+        fused = _try_fused_attention(node, env, memo, scalars, tracer)
         if fused is None:
-            fused = _try_fused_join_agg(node, env, memo, scalars)
+            fused = _try_fused_join_agg(node, env, memo, scalars,
+                                         tracer)
         if fused is not None:
             return fused
-        t = execute(node.input, env, memo, scalars)
+        t = execute(node.input, env, memo, scalars, tracer)
         schema = resolve(node)
         consumed = tuple(i for i, (k, _) in enumerate(t.keys)
                          if k not in node.group_keys)
@@ -1152,7 +1237,7 @@ def _execute(node: RelNode, env, memo, scalars=None) -> DenseTable:
         return DenseTable(keys=schema.keys, cols=cols, col_types=col_types)
 
     if isinstance(node, Filter):
-        t = execute(node.input, env, memo, scalars)
+        t = execute(node.input, env, memo, scalars, tracer)
         op, lhs, rhs = node.predicate
         dev = t.device
 
@@ -1175,7 +1260,7 @@ def _execute(node: RelNode, env, memo, scalars=None) -> DenseTable:
         return DenseTable(keys=t.keys, cols=cols, col_types=col_types)
 
     if isinstance(node, Unnest):
-        t = execute(node.input, env, memo, scalars)
+        t = execute(node.input, env, memo, scalars, tracer)
         schema = resolve(node)
         varr = t.cols[node.vec_col]
         cols = {node.elem_col: varr}
@@ -1189,7 +1274,7 @@ def _execute(node: RelNode, env, memo, scalars=None) -> DenseTable:
         return DenseTable(keys=schema.keys, cols=cols, col_types=col_types)
 
     if isinstance(node, Collect):
-        t = execute(node.input, env, memo, scalars)
+        t = execute(node.input, env, memo, scalars, tracer)
         schema = resolve(node)
         ax = t.key_names.index(node.fold_key)
         arr = torch.broadcast_to(t.cols[node.scalar_col], t.key_sizes)

@@ -85,12 +85,13 @@ class RelPipeline:
     input_schemas: Dict[str, RelSchema]
     bindings: Dict[str, Rel]
     chunk_size: int
-    # physical-layout planning results (filled by repro.planner.plan_layouts):
+    # physical-layout planning results (filled by
+    # repro_torch.planner.plan_layouts):
     # table name -> "row_chunk" | "col_chunk" | "col_chunk_heads" | a cache
     # layout name, plus the full LayoutPlan
     layouts: Dict[str, str] = dataclasses.field(default_factory=dict)
     layout_plan: Optional[object] = None
-    # sharded-execution plan (repro.planner.shard.ShardPlan, filled by
+    # sharded-execution plan (repro_torch.planner.shard.ShardPlan, filled by
     # plan_layouts(shards=N)): per-step shard decisions with per-shard
     # plan copies; None means unsharded execution (the strict default)
     shard_plan: Optional[object] = None

@@ -186,7 +186,7 @@ def postoptimize(pipeline: RelPipeline, layout_mode: str = "off",
     ``shards=N`` (N > 1) runs the sharded-execution pass after every
     other planning stage: eligible matmul sites get per-shard plan copies
     and a combine decision recorded on ``pipeline.shard_plan``
-    (``repro.planner.shard``); plans themselves are not rewritten.
+    (``repro_torch.planner.shard``); plans themselves are not rewritten.
     The resulting ``LayoutPlan`` is recorded on ``pipeline.layout_plan``.
     The shard plan runs through ``run_pipeline(shard_runner=)`` with a
     ``repro_torch.serving.shards.ShardWorkerPool``.

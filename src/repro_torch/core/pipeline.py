@@ -15,7 +15,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.executor import DenseTable, execute
+from repro_torch.core.executor import (DenseTable, execute,
+                                        steps_provenance)
 from repro_torch.core.opmap import RelPipeline
 
 
@@ -32,6 +33,20 @@ def _bind_scalars(scalars, device):
             host[name] = arr.astype(np.int64)
             dev[name] = torch.from_numpy(host[name]).to(device)
     return host, dev
+
+
+def step_span_args(pipeline: RelPipeline):
+    """The ``(ops, tables)`` lists each step span of ``pipeline`` carries
+    (the op classes and tables of the step's plan), computed once a
+    pipeline and shared by its spans (no span mutates its args).  The
+    engine calls it inside a traced plan compile, so a serving tick does
+    not pay for it."""
+    args = getattr(pipeline, "_step_span_args", None)
+    if args is None:
+        args = [(list(ops), list(tables)) for ops, tables in
+                steps_provenance(s.rel.plan for s in pipeline.steps)]
+        pipeline._step_span_args = args
+    return args
 
 
 def run_pipeline(
@@ -68,13 +83,19 @@ def run_pipeline(
 
     ``env`` may be a paged ``LazyEnv`` (``serving/engine.py``), which
     fetches weight tables on first Scan; it is copied with ``.copy()`` so
-    it stays one, and it names the device the call runs on.  ``tracer``
-    keeps the reference's signature; tracing is not ported, so anything
-    but ``None`` raises ``NotImplementedError``.
+    it stays one, and it names the device the call runs on.
+
+    ``tracer`` (an ``Optional[repro_torch.obs.trace.TraceRecorder]``)
+    records one ``cat="step"`` span per pipeline step, named after the
+    step with its ``kind`` and the op classes and tables of its plan
+    (``plan_provenance``), plus the executor's per-node ``cat="op"``
+    spans; the shard runner gets it too.  A step span ends in a
+    synchronise of the calling thread's current stream, so it measures the
+    step's device work, not its dispatch; the other streams (the pager's
+    copies, the shard workers') are not waited on.  On the CPU the work
+    is done on return.  With ``tracer=None`` the only cost is one
+    ``None`` check a step.
     """
-    if tracer is not None:
-        raise NotImplementedError(
-            "pipeline tracing is not ported: see ROADMAP.md next slice N6")
     env = env.copy()
     layout_plan = layout_plan or getattr(pipeline, "layout_plan", None)
     if layout_plan is not None:
@@ -85,68 +106,89 @@ def run_pipeline(
         iter(next(iter(env.values())).cols.values())).device
     host, scalars = _bind_scalars(scalars or {}, device)
     memo: Dict[int, DenseTable] = {}
+    stream = (torch.cuda.current_stream(device)
+              if tracer is not None and device.type == "cuda" else None)
 
-    for step in pipeline.steps:
+    def run_step(step) -> None:
         if step.kind == "bind":
             if shard_plan is not None and step.name in shard_plan.by_step:
                 env[step.name] = shard_runner(shard_plan, step, env, memo,
                                               scalars, tracer)
             else:
-                env[step.name] = execute(step.rel.plan, env, memo, scalars)
-            continue
-        if step.kind != "append":
-            raise ValueError(step.kind)
-        new = execute(step.rel.plan, env, memo, scalars)
-        cache = env[step.name]
-        ax = cache.key_names.index(step.append_key)
-        cache_len = cache.keys[ax][1]
-        cols = {}
-        if step.seq_key is not None:
-            # batched append: the new relation has one row per sequence and
-            # no position key; each sequence's row is written at (seq,
-            # offset[seq]) — a per-sequence INSERT position — in ONE
-            # indexed write over (seq, append) brought to the front
-            sax = cache.key_names.index(step.seq_key)
-            nseq = cache.keys[sax][1]
-            offsets = host[step.offset_name].reshape(-1)
-            if offsets.shape != (nseq,) or offsets.min() < 0 \
-                    or offsets.max() >= cache_len:
-                raise IndexError(
-                    f"{step.name}: per-sequence append positions {offsets} "
-                    f"must be {nseq} values in [0, {cache_len})")
-            order = [k for k in cache.key_names if k != step.append_key]
-            perm = [new.key_names.index(k) for k in order]
-            sax_new = order.index(step.seq_key)
-            for cname, arr in cache.cols.items():
-                new_arr = new.cols[cname]
-                vec = new_arr.ndim > len(perm)
-                new_arr = new_arr.permute(*perm, *([len(perm)] if vec else []))
-                out = arr.clone()
-                out.movedim((sax, ax), (0, 1))[
-                    torch.arange(nseq, device=device),
-                    scalars[step.offset_name]] = torch.movedim(
-                        new_arr, sax_new, 0).to(arr.dtype)
-                cols[cname] = out
+                env[step.name] = execute(step.rel.plan, env, memo, scalars,
+                                         tracer)
+        elif step.kind == "append":
+            env[step.name] = _append(step, env, memo, host, scalars, device,
+                                     tracer)
         else:
-            # the cache table's physical key order may differ from the new
-            # rows'; align the new rows' axes by key name and insert at the
-            # append key's axis
-            offset = host.get(step.offset_name, 0)
-            perm = [new.key_names.index(k) for k in cache.key_names]
-            for cname, arr in cache.cols.items():
-                new_arr = new.cols[cname]
-                vec = new_arr.ndim > len(perm)
-                new_arr = new_arr.permute(*perm, *([len(perm)] if vec else []))
-                n = new_arr.shape[ax]
-                if not 0 <= offset <= cache_len - n:
-                    raise IndexError(
-                        f"{step.name}: appending {n} rows at position "
-                        f"{offset} overflows the cache ({cache_len} rows)")
-                out = arr.clone()
-                out.narrow(ax, offset, n).copy_(new_arr)
-                cols[cname] = out
-        env[step.name] = DenseTable(keys=cache.keys, cols=cols,
-                                    col_types=cache.col_types)
+            raise ValueError(step.kind)
+
+    if tracer is None:
+        for step in pipeline.steps:
+            run_step(step)
+    else:
+        for step, (ops, tables) in zip(pipeline.steps,
+                                       step_span_args(pipeline)):
+            with tracer.span(step.name, cat="step", kind=step.kind,
+                             ops=ops, tables=tables):
+                run_step(step)
+                if stream is not None:
+                    stream.synchronize()
 
     outputs = {o: env[o] for o in pipeline.outputs}
     return outputs, env
+
+
+def _append(step, env, memo, host, scalars, device, tracer) -> DenseTable:
+    """An append step: the new rows written into a clone of the cache
+    table at the step's offset (one per sequence when batched)."""
+    new = execute(step.rel.plan, env, memo, scalars, tracer)
+    cache = env[step.name]
+    ax = cache.key_names.index(step.append_key)
+    cache_len = cache.keys[ax][1]
+    cols = {}
+    if step.seq_key is not None:
+        # batched append: the new relation has one row per sequence and
+        # no position key; each sequence's row is written at (seq,
+        # offset[seq]) — a per-sequence INSERT position — in ONE
+        # indexed write over (seq, append) brought to the front
+        sax = cache.key_names.index(step.seq_key)
+        nseq = cache.keys[sax][1]
+        offsets = host[step.offset_name].reshape(-1)
+        if offsets.shape != (nseq,) or offsets.min() < 0 \
+                or offsets.max() >= cache_len:
+            raise IndexError(
+                f"{step.name}: per-sequence append positions {offsets} "
+                f"must be {nseq} values in [0, {cache_len})")
+        order = [k for k in cache.key_names if k != step.append_key]
+        perm = [new.key_names.index(k) for k in order]
+        sax_new = order.index(step.seq_key)
+        for cname, arr in cache.cols.items():
+            new_arr = new.cols[cname]
+            vec = new_arr.ndim > len(perm)
+            new_arr = new_arr.permute(*perm, *([len(perm)] if vec else []))
+            out = arr.clone()
+            out.movedim((sax, ax), (0, 1))[
+                torch.arange(nseq, device=device),
+                scalars[step.offset_name]] = torch.movedim(
+                    new_arr, sax_new, 0).to(arr.dtype)
+            cols[cname] = out
+    else:
+        # the cache table's physical key order may differ from the new
+        # rows'; align the new rows' axes by key name and insert at the
+        # append key's axis
+        offset = host.get(step.offset_name, 0)
+        perm = [new.key_names.index(k) for k in cache.key_names]
+        for cname, arr in cache.cols.items():
+            new_arr = new.cols[cname]
+            vec = new_arr.ndim > len(perm)
+            new_arr = new_arr.permute(*perm, *([len(perm)] if vec else []))
+            n = new_arr.shape[ax]
+            if not 0 <= offset <= cache_len - n:
+                raise IndexError(
+                    f"{step.name}: appending {n} rows at position "
+                    f"{offset} overflows the cache ({cache_len} rows)")
+            out = arr.clone()
+            out.narrow(ax, offset, n).copy_(new_arr)
+            cols[cname] = out
+    return DenseTable(keys=cache.keys, cols=cols, col_types=cache.col_types)

@@ -55,7 +55,7 @@ class StatementProvenance:
     """What a generated SQL segment *is* in pipeline terms.
 
     The statement↔op provenance tag the observability layer
-    (:mod:`repro.obs`) keys DB profiles by: each emitted script segment
+    (:mod:`repro_torch.obs`) keys DB profiles by: each emitted script segment
     records the pipeline step it implements, the relational op classes
     in that step's plan, the base tables it scans and — for precision-
     planned pipelines — which of those are quantised (their projections
@@ -327,7 +327,7 @@ class SQLGenerator:
         script is the ``"\\n\\n"``-join of the first elements.  Each
         segment carries a :class:`StatementProvenance` tag mapping it
         back to the pipeline step / relational ops that generated it, so
-        per-operator DB profiles can be attributed (:mod:`repro.obs`).
+        per-operator DB profiles can be attributed (:mod:`repro_torch.obs`).
 
         ``step_create="TABLE"`` materialises every bind step as a table
         instead of a view: views are lazy (their operators execute — and
@@ -566,7 +566,7 @@ def generate_sql_with_provenance(
         step_create: str = "VIEW") -> List[Tuple[str, StatementProvenance]]:
     """Like :func:`generate_sql` but returns ``(sql, provenance)`` pairs —
     the observability layer's entry point for per-statement attribution
-    (:mod:`repro.obs.dbtrace`)."""
+    (:mod:`repro_torch.obs.dbtrace`)."""
     return SQLGenerator(pipeline, dialect=dialect).generate_with_provenance(
         include_ddl, include_conversion=include_conversion,
         step_create=step_create)

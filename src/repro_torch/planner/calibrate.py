@@ -105,8 +105,8 @@ def step_features(spec: LlamaSpec, kind: str, T: int, cs: int,
     This is the join key for observed per-step timings: the step names
     match both ``run_pipeline``'s ``cat="step"`` spans and the
     ``StatementProvenance.step`` tags on the generated SQL, so a
-    :func:`repro.obs.drift.drift_report` (or :func:`fit_from_step_timings`)
-    can pair each prediction with where the time actually went.
+    :func:`repro_torch.obs.drift.drift_report` (or
+    :func:`fit_from_step_timings`) can pair each prediction with where the time actually went.
 
     ``mode`` selects which layout each matched site is priced under:
     ``"off"`` (all ROW_CHUNK), ``"col"`` (column wherever legal — the
@@ -294,7 +294,7 @@ def fit_quant_weights(points: Sequence[Tuple[float, float, float, float]],
 
     ``dequant_times_us`` aligns with ``points``: the traced
     ``dequant_project`` operator-class time (µs) of that measurement —
-    :meth:`repro.obs.dbtrace.TickTrace.class_times_us` over one profiled
+    :meth:`repro_torch.obs.dbtrace.TickTrace.class_times_us` over one profiled
     tick — or ``None`` where no trace exists.  When any usable pair is
     present, the dequant slope is fitted *directly* from the traced
     operator times (through-origin regression on dequant elements), and
@@ -576,13 +576,13 @@ def fit_from_step_timings(features: Dict[str, Tuple[float, float]],
     ``features``: step → (rows, groups) from :func:`step_features`;
     ``observed_us``: step → measured µs, from a traced ``run_pipeline``
     (``TraceRecorder.step_times_us()``) or a DB-profiled tick
-    (``repro.obs.profile.step_times_us``).  Each priced step is one fit
+    (``repro_torch.obs.profile.step_times_us``).  Each priced step is one fit
     point, so a single traced invocation yields an overdetermined system
     (unlike the benchmark fits, which get one point per whole-pipeline
     measurement).  Steps present on only one side are ignored; fewer than
     4 joined points keeps the analytic defaults (with a structured
     fallback event).  The fitted scale/intercept feed
-    ``repro.obs.drift.drift_report(scale_us=..., intercept_us=...)`` to
+    ``repro_torch.obs.drift.drift_report(scale_us=..., intercept_us=...)`` to
     measure later runs' absolute drift against this calibration.
     """
     base = base or CostParams()

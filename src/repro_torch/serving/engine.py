@@ -19,9 +19,10 @@ and ``accuracy_budget`` as in the reference, both residencies
 weight tables streaming through a bounded :class:`~repro_torch.serving.
 pager.WeightPager` working set), ``shards`` (the planner's tensor-parallel
 axis run by :mod:`repro_torch.serving.shards`), the prefix cache
-(``BatchedDecoder(prefix_block=16)``) and an optional ``metrics`` registry
-(``repro_torch.obs.MetricsRegistry``).  ``tracer`` raises
-``NotImplementedError`` naming the ROADMAP.md slice that brings it.
+(``BatchedDecoder(prefix_block=16)``), an optional ``metrics`` registry
+(``repro_torch.obs.MetricsRegistry``) and an optional ``tracer``
+(``repro_torch.obs.TraceRecorder``: the reference's plan-compile, session,
+decoder-phase, pipeline-step, op, pager and shard spans).
 
 The reference's docstring says its relational pager prefetches the next
 layer's tables during compute; its code prefetches only the
@@ -30,7 +31,9 @@ layer's tables during compute; its code prefetches only the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Dict, List, Optional
@@ -44,7 +47,7 @@ from repro_torch.core.executor import DenseTable, table_from_chunked
 from repro_torch.core.graph import infer_shapes
 from repro_torch.core.opmap import op_map
 from repro_torch.core.passes import postoptimize, preoptimize
-from repro_torch.core.pipeline import run_pipeline
+from repro_torch.core.pipeline import run_pipeline, step_span_args
 from repro_torch.planner import CACHE_MODES, MODES, ResidencyPool
 from repro_torch.quant.codecs import CODECS, quantise_dense
 from repro_torch.serving.kvcache import BatchedCacheTables, PrefixCache
@@ -58,12 +61,6 @@ class GenerationResult:
     tpot_s: float
     peak_working_set: int = 0
     pager_stats: Optional[Dict] = None
-
-
-def _not_ported(knob: str, value, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob}={value!r} is not ported yet: see ROADMAP.md next slice "
-        f"{slice_}")
 
 
 class LazyEnv(dict):
@@ -184,7 +181,13 @@ class RelationalEngine:
     optional ``repro_torch.obs.MetricsRegistry``: plan-cache lookups,
     single-sequence decode step latency, re-plans, quantised bytes and the
     pager here, decode ticks and the prefix cache in
-    :class:`BatchedDecoder`, requests in the scheduler.
+    :class:`BatchedDecoder`, requests in the scheduler.  ``tracer`` is an
+    optional ``repro_torch.obs.TraceRecorder``: one ``cat="plan"`` span a
+    plan compile, ``session_env`` spans, the decoder's phase spans, and
+    through ``run_pipeline`` one ``cat="step"`` span a pipeline step (each
+    ending in a synchronise of the current stream, so leave it ``None``
+    when timing end to end) with the executor's ``cat="op"`` spans; the
+    pager and the shard workers record their own.
     """
 
     PRECISION_KNOBS = ("f32", "auto", "int8", "nf4")
@@ -209,9 +212,6 @@ class RelationalEngine:
         if precision not in self.PRECISION_KNOBS:
             raise ValueError(f"precision must be one of "
                              f"{self.PRECISION_KNOBS}, got {precision!r}")
-        if tracer is not None:
-            raise _not_ported("tracer", tracer,
-                              "N6 (observability and HTTP server)")
         self.device = resolve_device(device)
         self._chunk_mode = "off"
         if chunk_size == "auto":
@@ -228,6 +228,7 @@ class RelationalEngine:
         self.max_len = max_len
         # zero-cost when None: every site guards with `is not None`
         self.metrics = metrics
+        self.tracer = tracer
         # shards: None/1 keeps plans and execution identical to an
         # unsharded engine; "auto" sizes the worker pool to the host's
         # cores; N > 1 splits eligible matmul sites into N key-range shards
@@ -277,7 +278,7 @@ class RelationalEngine:
         # powers of two: sessions join/leave the batch without replanning
         self._batched_pipes: Dict[int, object] = {}
         self.decode_pipe = self._compile_pipe(
-            lg.build_decode_graph(spec, cache_len=max_len),
+            functools.partial(lg.build_decode_graph, spec, cache_len=max_len),
             cache_mode=cache_layout)
         self._table_chunks.update(self.decode_pipe.table_chunks)
         # resolved decode-time cache layout; prefill and batched plans are
@@ -297,7 +298,8 @@ class RelationalEngine:
         else:
             self.pager = WeightPager(budget_bytes or 1 << 62,
                                      disk_dir=disk_dir, policy=pager_policy,
-                                     metrics=metrics, device=self.device)
+                                     metrics=metrics, tracer=tracer,
+                                     device=self.device)
             for k, v in params.items():
                 self.pager.add(k, v)
             self.env_base = LazyEnv(self.pager, self.cs, _chunked_table,
@@ -309,7 +311,8 @@ class RelationalEngine:
             self.shard_pool = ShardWorkerPool(
                 self.shards, residency=residency, cs=self.cs,
                 budget_bytes=self._residency_budget,
-                pager_policy=pager_policy, device=self.device)
+                pager_policy=pager_policy, trace=tracer is not None,
+                device=self.device)
             self._shard_runner = self.shard_pool.run_step
         self._register_shards(self.decode_pipe)
         # the gate builds a full in-memory f32 reference engine (a second
@@ -325,14 +328,33 @@ class RelationalEngine:
                 device=self.device)
             check_accuracy(self, ref, tolerance=accuracy_budget)
 
-    def _compile_pipe(self, g, cache_mode: str):
+    def _compile_pipe(self, build, cache_mode: str):
         """Shared graph → planned-pipeline compile path.  Every pipeline
         the engine builds (decode, prefill, batched decode) comes through
         here so they plan under identical knobs: the shared residency
         pool, and (``chunk_size="auto"``) the decode plan's per-table chunk
-        sizes pinned for every later plan.  Only the graph and the cache
-        mode (the seed decode plan resolves the knob; later plans are
-        forced to its choice) differ per call site."""
+        sizes pinned for every later plan.  Only the graph (``build()``
+        makes it) and the cache mode (the seed decode plan resolves the
+        knob; later plans are forced to its choice) differ per call site.
+
+        With a tracer the whole compile, the graph's build included, is
+        one ``compile:{graph}`` span (``cat="plan"``): a first-touch
+        compile lands inside a serving tick (a new prefill length or batch
+        bucket, a re-plan), where it would otherwise be unattributed tick
+        time.  The compile then also derives the step spans' provenance
+        (``step_span_args``), which walks every step's plan.  The span is
+        recorded once the graph, and so its name, exists."""
+        tracer = self.tracer
+        if tracer is None:
+            return self._compile_pipe_inner(build(), cache_mode)
+        t0 = tracer._now_us()
+        pipe = self._compile_pipe_inner(build(), cache_mode)
+        step_span_args(pipe)
+        tracer.add_span(f"compile:{pipe.name}", "plan", t0,
+                        tracer._now_us() - t0, depth=tracer._depth)
+        return pipe
+
+    def _compile_pipe_inner(self, g, cache_mode: str):
         infer_shapes(g)
         preoptimize(g)
         pipe = op_map(g, chunk_size=self.cs)
@@ -422,12 +444,12 @@ class RelationalEngine:
             self.shard_pool.merge_metrics(self.metrics)
 
     def merged_shard_trace(self):
-        """The reference's Chrome trace of the coordinator and the shard
-        workers: ``None`` here, where tracing is off (it is not ported,
-        see ROADMAP.md N6) or the engine is unsharded."""
+        """Chrome trace combining the coordinator's spans with every
+        worker's, one pid per track (``None`` when the engine is
+        unsharded; no events when tracing is off)."""
         if self.shard_pool is None:
             return None
-        return self.shard_pool.merged_chrome_trace()
+        return self.shard_pool.merged_chrome_trace(self.tracer)
 
     def _plan_cache_event(self, cache: str, hit: bool) -> None:
         if self.metrics is not None:
@@ -441,8 +463,8 @@ class RelationalEngine:
         self._plan_cache_event("prefill", key in self._prefill_pipes)
         if key not in self._prefill_pipes:
             pipe = self._compile_pipe(
-                lg.build_prefill_graph(self.spec, T, cache_len=self.max_len,
-                                       suffix=suffix),
+                functools.partial(lg.build_prefill_graph, self.spec, T,
+                                  cache_len=self.max_len, suffix=suffix),
                 cache_mode=self._prefill_cache_mode)
             self._register_layouts(pipe)
             self._register_shards(pipe)
@@ -455,8 +477,8 @@ class RelationalEngine:
         self._plan_cache_event("batched_decode", batch in self._batched_pipes)
         if batch not in self._batched_pipes:
             pipe = self._compile_pipe(
-                lg.build_decode_graph(self.spec, cache_len=self.max_len,
-                                      batch=batch),
+                functools.partial(lg.build_decode_graph, self.spec,
+                                  cache_len=self.max_len, batch=batch),
                 cache_mode=self._prefill_cache_mode)
             self._register_layouts(pipe)
             self._register_shards(pipe)
@@ -513,7 +535,8 @@ class RelationalEngine:
         for t, p in self.table_precision_choices.items():
             self._table_precisions.setdefault(t, p)
         pipe = self._compile_pipe(
-            lg.build_decode_graph(self.spec, cache_len=self.max_len),
+            functools.partial(lg.build_decode_graph, self.spec,
+                              cache_len=self.max_len),
             cache_mode=self._prefill_cache_mode)
         self._register_layouts(pipe)
         self._register_shards(pipe)
@@ -533,16 +556,18 @@ class RelationalEngine:
     def start_session(self, prompt: List[int]):
         """Prefill; returns a session dict holding env + cursor + first tok."""
         T = len(prompt)
-        env = self._fresh_env()
-        env["token_ids"] = lg.token_table(np.asarray(prompt),
-                                          device=self.device)
-        env["freq_each_token"] = lg.rope_freq_table(
-            np.arange(T), self.spec.head_dim, self.spec.rope_theta,
-            device=self.device)
+        with self._span("session_env"):
+            env = self._fresh_env()
+            env["token_ids"] = lg.token_table(np.asarray(prompt),
+                                              device=self.device)
+            env["freq_each_token"] = lg.rope_freq_table(
+                np.arange(T), self.spec.head_dim, self.spec.rope_theta,
+                device=self.device)
         if self.pager is not None:
             self.pager.prefetch(["vocabulary"])
         outs, env = run_pipeline(self._prefill_pipe(T), env,
                                  scalars={"cache_position": 0},
+                                 tracer=self.tracer,
                                  shard_runner=self._shard_runner)
         logits = self._final_logits(outs["logits"])
         return {"env": env, "pos": T, "tok": int(np.argmax(logits)),
@@ -573,21 +598,32 @@ class RelationalEngine:
             raise ValueError(
                 f"suffix prefill needs >= 1 new token: prompt length "
                 f"{len(prompt)} <= boundary {boundary}")
-        env = self._weights_env()
-        env.update(cache_tables)
-        env["token_ids"] = lg.token_table(np.asarray(prompt[boundary:]),
-                                          device=self.device)
-        env["freq_each_token"] = lg.rope_freq_table(
-            np.arange(boundary, len(prompt)), self.spec.head_dim,
-            self.spec.rope_theta, device=self.device)
+        with self._span("session_env"):
+            env = self._weights_env()
+            env.update(cache_tables)
+            env["token_ids"] = lg.token_table(
+                np.asarray(prompt[boundary:]), device=self.device)
+            env["freq_each_token"] = lg.rope_freq_table(
+                np.arange(boundary, len(prompt)), self.spec.head_dim,
+                self.spec.rope_theta, device=self.device)
         if self.pager is not None:
             self.pager.prefetch(["vocabulary"])
         outs, env = run_pipeline(self._prefill_pipe(T, suffix=True), env,
                                  scalars={"cache_position": boundary},
+                                 tracer=self.tracer,
                                  shard_runner=self._shard_runner)
         logits = self._final_logits(outs["logits"])
         return {"env": env, "pos": len(prompt),
                 "tok": int(np.argmax(logits)), "logits": logits}
+
+    def _span(self, name: str, **args):
+        """Named ``cat="decoder"`` span (no-op without a tracer): work
+        outside ``run_pipeline`` (session set-up, slot writes, the prefix
+        cache) that would otherwise be unattributed tick time in the
+        flight recorder."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, cat="decoder", **args)
 
     def prefill_logits(self, prompt: List[int]) -> np.ndarray:
         """Final-position prefill logits (the accuracy gate's probe)."""
@@ -604,6 +640,7 @@ class RelationalEngine:
         t0 = time.perf_counter() if self.metrics is not None else 0.0
         outs, env = run_pipeline(self.decode_pipe, env,
                                  scalars={"cache_position": pos},
+                                 tracer=self.tracer,
                                  shard_runner=self._shard_runner)
         logits = self._final_logits(outs["logits"])
         if self.metrics is not None:
@@ -711,8 +748,11 @@ class BatchedDecoder:
         # the slot generation, invalidating any cached batch view over it
         self._unbind(seq_id)
         sess = self.engine.start_session(list(prompt))
-        self.pool.write_prefill(seq_id, sess["env"], len(prompt))
-        return sess["tok"]
+        with self.engine._span("cache_fill"):
+            self.pool.write_prefill(seq_id, sess["env"], len(prompt))
+            tok = sess["tok"]
+            del sess  # the session's step outputs go with the fill
+        return tok
 
     def prefill_ex(self, prompt: List[int], seq_id: int
                    ) -> "tuple[int, int]":
@@ -732,29 +772,38 @@ class BatchedDecoder:
         pc = self.prefix_cache
         if pc is None:
             return self.prefill(prompt, seq_id), 0
-        hit = pc.lookup(prompt)
+        span = self.engine._span
+        with span("prefix_lookup"):
+            hit = pc.lookup(prompt)
         if hit is None:
             sess = self.engine.start_session(prompt)
-            self.pool.write_prefill(seq_id, sess["env"], len(prompt))
-            pc.insert(prompt, sess["env"])
-            return sess["tok"], 0
+            with span("cache_fill"):
+                self.pool.write_prefill(seq_id, sess["env"], len(prompt))
+                pc.insert(prompt, sess["env"])
+                tok = sess["tok"]
+                del sess  # the session's step outputs go with the fill
+            return tok, 0
         seg, boundary = hit
         sess = self.engine.start_suffix_session(prompt, boundary,
                                                 seg.tables)
-        if self._resolve_bind(boundary) == "share":
-            # the slot holds only the divergent suffix; gathers splice the
-            # segment's rows in (UNION-remap); the segment stays pinned
-            pc.acquire(seg)
-            self.pool.write_suffix(seq_id, sess["env"], len(prompt),
-                                   boundary)
-            self.pool.bind_segment(seq_id, seg, boundary)
-        else:
-            # bulk copy (INSERT ... SELECT): the slot owns a private full
-            # copy, no pin, no gather-time splice
-            self.pool.write_prefill(seq_id, sess["env"], len(prompt))
-        # intern the extended prefix too (no-op if coverage unchanged)
-        pc.insert(prompt, sess["env"])
-        return sess["tok"], boundary
+        with span("cache_fill", prefix_hit=boundary):
+            if self._resolve_bind(boundary) == "share":
+                # the slot holds only the divergent suffix; gathers splice
+                # the segment's rows in (UNION-remap); the segment stays
+                # pinned
+                pc.acquire(seg)
+                self.pool.write_suffix(seq_id, sess["env"], len(prompt),
+                                       boundary)
+                self.pool.bind_segment(seq_id, seg, boundary)
+            else:
+                # bulk copy (INSERT ... SELECT): the slot owns a private
+                # full copy, no pin, no gather-time splice
+                self.pool.write_prefill(seq_id, sess["env"], len(prompt))
+            # intern the extended prefix too (no-op if coverage unchanged)
+            pc.insert(prompt, sess["env"])
+            tok = sess["tok"]
+            del sess
+        return tok, boundary
 
     def _resolve_bind(self, boundary: int) -> str:
         """Bind-mode pricing.  Copy costs one full-slot device write at
@@ -781,6 +830,10 @@ class BatchedDecoder:
                ) -> List[int]:
         eng = self.engine
         metrics = eng.metrics
+        # decoder-phase spans name the tick's work outside run_pipeline
+        # (view gathers, cache writeback, logits extraction), so a
+        # flight-recorded tick attributes its wall time end to end
+        span = eng._span
         t0 = time.perf_counter() if metrics is not None else 0.0
         B = len(seq_ids)
         bucket = eng._decode_bucket(B)
@@ -790,35 +843,43 @@ class BatchedDecoder:
         positions = self.pool.positions[np.asarray(ids)]
         view_key = (tuple(ids), self.pool.slot_generations(ids))
         view_hit = self._view_key == view_key
-        env = eng._weights_env()
-        if view_hit:
-            env.update(self._views)  # unchanged batch: reuse last views
-        else:
-            env.update(self.pool.gather_views(ids))
+        with span("cache_views", outcome="hit" if view_hit else "miss"):
+            env = eng._weights_env()
+            if view_hit:
+                env.update(self._views)  # unchanged batch: reuse last views
+            else:
+                env.update(self.pool.gather_views(ids))
+            env["token_ids"] = lg.token_table(np.asarray(toks), key="seq",
+                                              device=eng.device)
+            env["freq_each_token"] = lg.rope_freq_table(
+                positions, eng.spec.head_dim, eng.spec.rope_theta,
+                key="seq", device=eng.device)
         if metrics is not None:
             metrics.counter("decoder_view_cache_total",
                             "batched cache-view gathers",
                             outcome="hit" if view_hit else "miss").inc()
-        env["token_ids"] = lg.token_table(np.asarray(toks), key="seq",
-                                          device=eng.device)
-        env["freq_each_token"] = lg.rope_freq_table(
-            positions, eng.spec.head_dim, eng.spec.rope_theta, key="seq",
-            device=eng.device)
         outs, env = run_pipeline(pipe, env,
                                  scalars={"seq_positions": positions},
+                                 tracer=eng.tracer,
                                  shard_runner=eng._shard_runner)
         self.decode_calls += 1
         # the tick's only cache mutation is one appended row per sequence
         # at positions[b] — write back just those rows; the updated views
         # (which already contain them) serve the next tick's gather
-        self.pool.scatter_rows(ids, env, positions)
-        self._views = {name: env[name] for name in self.pool.tables}
-        self._view_key = view_key
-        for s in seq_ids:
-            self.pool.positions[s] += 1
-        logits = outs["logits"].cols["v"].reshape(bucket, -1)[
-            :B, : eng.spec.vocab].cpu().numpy()
-        next_toks = [int(t) for t in np.argmax(logits, axis=1)]
+        with span("cache_writeback"):
+            self.pool.scatter_rows(ids, env, positions)
+            self._views = {name: env[name] for name in self.pool.tables}
+            self._view_key = view_key
+            for s in seq_ids:
+                self.pool.positions[s] += 1
+            # the tick's step outputs go here, where they were last read
+            # (freeing a few thousand tensors takes milliseconds)
+            del env
+        with span("logits_argmax"):
+            logits = outs["logits"].cols["v"].reshape(bucket, -1)[
+                :B, : eng.spec.vocab].cpu().numpy()
+            next_toks = [int(t) for t in np.argmax(logits, axis=1)]
+            del outs
         if metrics is not None:
             metrics.histogram(
                 "decoder_tick_seconds",

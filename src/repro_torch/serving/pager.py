@@ -75,24 +75,32 @@ class WeightPager:
                 it — the paper's disk+mem reuse regime).
 
     ``device`` holds the hot set: the CUDA card unless the caller passes
-    ``"cpu"``; without CUDA a CUDA device raises.  ``tracer`` keeps the
-    reference's signature; tracing is not ported, so anything but
-    ``None`` raises ``NotImplementedError``.
+    ``"cpu"``; without CUDA a CUDA device raises.
+
+    ``tracer`` (an optional ``repro_torch.obs.trace.TraceRecorder``)
+    records a ``pager_fetch:{name}`` span for each miss and a
+    ``pager_prefetch:{name}`` span for each prefetched entry (``cat=
+    "pager"``, ``depth=1``, ``bytes=`` the cold entry's size), through
+    ``add_span``, which is safe from the prefetch thread.  As in the
+    reference, where the span covers an asynchronous ``device_put``, a
+    span covers issuing the copy on the pager's stream (and staging a
+    memmap through pinned memory), not the copy itself: the stream that
+    reads the table waits on the copy's event, and that wait is charged to
+    the step that reads it.
     """
 
     def __init__(self, budget_bytes: int, disk_dir: Optional[str] = None,
                  policy: str = "clock", metrics=None, tracer=None,
                  device="cuda"):
-        if tracer is not None:
-            raise NotImplementedError(
-                "pager tracing is not ported: see ROADMAP.md next slice N6 "
-                "(observability and HTTP server)")
         self.budget = budget_bytes
         self.policy = policy
         self.disk_dir = disk_dir
         # optional repro_torch.obs.MetricsRegistry mirror of ``stats``
         # (``stats`` stays the source of truth)
         self.metrics = metrics
+        # cold→device fetch spans stamped with the ambient TraceContext
+        # (prefetch spans carry none: they serve requests not yet known)
+        self.tracer = tracer
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
@@ -184,6 +192,17 @@ class WeightPager:
             ready.record(self._stream)
         return hot, ready
 
+    def _traced_fetch(self, span: str, cold):
+        """``_fetch`` under a ``cat="pager"`` span when a tracer is set."""
+        if self.tracer is None:
+            return self._fetch(cold)
+        t0 = self.tracer._now_us()
+        out = self._fetch(cold)
+        self.tracer.add_span(span, cat="pager", ts_us=t0,
+                             dur_us=self.tracer._now_us() - t0, depth=1,
+                             bytes=_nbytes(cold))
+        return out
+
     def _use(self, arr: torch.Tensor, ready) -> torch.Tensor:
         """Order the calling thread's stream after the entry's copy and
         keep the entry's bytes from reuse until that stream has read
@@ -258,7 +277,7 @@ class WeightPager:
                     self.metrics.counter(
                         "pager_bytes_loaded_total",
                         "bytes moved cold→device").inc(_nbytes(cold))
-                arr, ready = self._fetch(cold)
+                arr, ready = self._traced_fetch(f"pager_fetch:{name}", cold)
                 nb = _nbytes(arr)
                 self._evict_until(nb)
                 self._held += nb
@@ -299,7 +318,7 @@ class WeightPager:
                     continue
                 # the slow copy, outside the lock; its event is recorded
                 # before the entry is published below
-                arr, ready = self._fetch(cold)
+                arr, ready = self._traced_fetch(f"pager_prefetch:{n}", cold)
                 nb = _nbytes(arr)
                 with self._lock:
                     if n in self._hot or n in self._prefetched:

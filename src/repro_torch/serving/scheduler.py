@@ -6,7 +6,7 @@ decode step per tick (iteration-level scheduling).  When the page pool runs
 dry it preempts the youngest sequence (free its pages, re-queue) — the
 standard vLLM-style policy, here over the paper's KV-cache *tables*.
 
-Streaming front ends (``repro.serving.server``) hook in through two
+Streaming front ends (``repro_torch.serving.server``) hook in through two
 callbacks — ``on_token(req, tok)`` fires as each token is generated (at
 prefill and after every decode tick) and ``on_done(req)`` when a request
 completes — so tokens leave the batch without polling.  Preemption
@@ -143,22 +143,25 @@ class ContinuousBatcher:
         self.active: Dict[int, Request] = {}   # seq_id -> request
         self.finished: List[Request] = []
         self.stats = SchedulerStats()
-        # optional repro.obs.metrics.MetricsRegistry: TTFT / TPOT / tick
-        # histograms, occupancy gauge, preemption + completion + SLO
+        # optional repro_torch.obs.metrics.MetricsRegistry: TTFT / TPOT /
+        # tick histograms, occupancy gauge, preemption + completion + SLO
         # violation counters
         self.metrics = metrics
         self.on_token = on_token
         self.on_done = on_done
-        # optional repro.obs wiring (all three default off = zero cost):
+        # optional repro_torch.obs wiring (all three default off = zero
+        # cost):
         # tracer  — the engine's TraceRecorder; when a flight recorder is
         #           given too, the batcher DRAINS it after every prefill/
         #           decode so a long-running server never accumulates an
         #           unbounded span list (the flight ring is the retention
         #           policy)
-        # flight  — repro.obs.flight.FlightRecorder receiving one record
-        #           per prefill/decode tick with the request ids it served
+        # flight  — repro_torch.obs.flight.FlightRecorder receiving one
+        #           record per prefill/decode tick with the request ids it
+        #           served
         # watchdog — object with on_tick() called after each decode at a
-        #           tick boundary (repro.serving.watchdog.DriftWatchdog)
+        #           tick boundary
+        #           (repro_torch.serving.watchdog.DriftWatchdog)
         self.tracer = tracer
         self.flight = flight
         self.watchdog = watchdog

@@ -61,16 +61,11 @@ from repro_torch.core.executor import DenseTable, execute
 from repro_torch.core.relational import Scan, is_vec, vec_width
 from repro_torch.obs.context import activate, current_context
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import TraceRecorder
 from repro_torch.planner.shard import (COMBINE_SUM, ShardDecision, ShardPlan,
                                        _slice_schema)
 from repro_torch.serving.engine import LazyEnv, _chunked_table
 from repro_torch.serving.pager import WeightPager
-
-
-def _no_trace(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported: see ROADMAP.md next slice N6 (observability "
-        f"and HTTP server)")
 
 
 def slice_table(t: DenseTable, key: str, lo: int, hi: int) -> DenseTable:
@@ -133,14 +128,13 @@ class ShardWorker:
                  budget_bytes: Optional[int] = None,
                  pager_policy: str = "pin", trace: bool = False,
                  device="cuda"):
-        if trace:
-            raise _no_trace("shard worker tracing")
         self.index = index
         self.residency = residency
         self.device = resolve_device(device)
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self.metrics = MetricsRegistry()
+        self.tracer = TraceRecorder() if trace else None
         if residency == "in_memory":
             self.pager = None
             self.env: Dict[str, DenseTable] = {}
@@ -207,7 +201,13 @@ class ShardWorker:
         branch reads the environment, never the memo) and into the memo
         otherwise.  ``ctx`` is the coordinator's trace context:
         contextvars do not cross the thread-pool boundary, so the pool
-        captures it at fan-out and this method re-activates it."""
+        captures it at fan-out and this method re-activates it: the
+        worker's spans then carry the coordinator's request ids.
+
+        With ``trace`` on, the plan copy runs under one ``cat="shard"``
+        span ``"{step}::shard{s}"`` in the worker's own recorder, ending
+        in a synchronise of the worker's stream (not the device: the other
+        workers' streams run on)."""
         t0 = time.perf_counter()
         env = self.env.copy()
         memo: Dict[int, DenseTable] = {}
@@ -222,12 +222,17 @@ class ShardWorker:
             if self.stream is not None:
                 self.stream.wait_event(ready)
                 _record(left, self.stream)
-            out = execute(dec.shard_roots[s], env, memo, scalars)
-            if self.stream is not None:
-                done = torch.cuda.Event()
-                done.record(self.stream)
-        if done is not None:
-            done.synchronize()
+            span = (contextlib.nullcontext() if self.tracer is None
+                    else self.tracer.span(f"{dec.step_name}::shard{s}",
+                                          cat="shard", table=dec.table,
+                                          kind=dec.kind,
+                                          combine=dec.combine))
+            with span:
+                out = execute(dec.shard_roots[s], env, memo, scalars)
+                if self.stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(self.stream)
+                    done.synchronize()
         busy = time.perf_counter() - t0
         self.metrics.counter("shard_worker_runs_total",
                              "per-shard plan executions").inc()
@@ -326,15 +331,15 @@ class ShardWorkerPool:
 
         Decisions arrive inner-first (planner post-order), so a site
         nested inside another site's activation subtree is combined —
-        and memo-seeded — before the outer site's left executes."""
-        if tracer is not None:
-            raise _no_trace("shard tracing")
+        and memo-seeded — before the outer site's left executes.  The
+        coordinator's work (each site's left subtree and the step's tail)
+        gets ``tracer``'s op spans; the workers record into their own."""
         cuda = self.device.type == "cuda"
         # contextvars do not propagate into ThreadPoolExecutor workers,
         # so each worker re-activates the coordinator's (ShardWorker.run)
         ctx = current_context()
         for dec in shard_plan.by_step[step.name]:
-            left = execute(dec.left, env, memo, scalars)
+            left = execute(dec.left, env, memo, scalars, tracer)
             ready = None
             if cuda:
                 ready = torch.cuda.Event()
@@ -360,7 +365,7 @@ class ShardWorkerPool:
             self.stats.fanout_s += sum(busy)
             self.stats.critical_s += max(busy)
             memo[id(dec.agg)] = self._combine(dec, partials)
-        return execute(step.rel.plan, env, memo, scalars)
+        return execute(step.rel.plan, env, memo, scalars, tracer)
 
     @staticmethod
     def _combine(dec: ShardDecision, partials: List[DenseTable]
@@ -399,13 +404,30 @@ class ShardWorkerPool:
         for w in self.workers:
             registry.merge(w.metrics, shard=str(w.index))
 
-    def merged_chrome_trace(self, main_tracer=None):
-        """The reference's merged Chrome trace of the coordinator's and
-        the workers' spans: ``None`` with tracing off; tracing is not
-        ported (ROADMAP.md N6), so a tracer raises."""
+    def merged_chrome_trace(self, main_tracer=None) -> Dict:
+        """One Chrome trace with the coordinator on pid 1 and each
+        worker's spans on their own pid, re-based to a common epoch so
+        fan-out renders as overlapping tracks."""
+        recs = []
         if main_tracer is not None:
-            raise _no_trace("the merged shard trace")
-        return None
+            recs.append(("coordinator", main_tracer))
+        recs.extend((f"shard{w.index}", w.tracer)
+                    for w in self.workers if w.tracer is not None)
+        if not recs:
+            return {"displayTimeUnit": "ms", "traceEvents": []}
+        epoch0 = min(r._epoch for _, r in recs)
+        events = []
+        for pid, (track, rec) in enumerate(recs, start=1):
+            off_us = (rec._epoch - epoch0) * 1e6
+            for e in rec.events:
+                events.append({
+                    "name": e.name, "cat": e.cat or "default", "ph": "X",
+                    "ts": e.ts_us + off_us, "dur": e.dur_us, "pid": pid,
+                    "tid": e.depth,
+                    "args": dict(e.args, track=track),
+                })
+        events.sort(key=lambda e: e["ts"])
+        return {"displayTimeUnit": "ms", "traceEvents": events}
 
     def shutdown(self) -> None:
         self._exec.shutdown(wait=False)

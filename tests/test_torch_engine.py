@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core.llama_graph import (LlamaSpec as JSpec,  # noqa: E402
                                     init_llama_params)
+from repro.obs import TraceRecorder as JTracer  # noqa: E402
 from repro.serving.engine import RelationalEngine as JEngine  # noqa: E402
 from repro.serving.kvcache import (PagedKVCache as JPaged,  # noqa: E402
                                    PagedKVConfig as JPagedCfg)
@@ -23,6 +24,7 @@ from repro.serving.scheduler import (ContinuousBatcher as JBatcher,  # noqa: E40
 from repro_torch.core.llama_graph import (LlamaSpec,  # noqa: E402
                                           init_llama_tensors)
 from repro_torch.kernels import chunked_matmul  # noqa: E402
+from repro_torch.obs import TraceRecorder as TTracer  # noqa: E402
 from repro_torch.serving.engine import RelationalEngine  # noqa: E402
 from repro_torch.serving.kvcache import (PagedKVCache,  # noqa: E402
                                          PagedKVConfig)
@@ -119,14 +121,34 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
         PagedKVCache(PagedKVConfig(n_layers=1, n_kv=1, head_dim=4), 1)
 
 
-@pytest.mark.parametrize("knob", [dict(tracer=object())])
+def span_key(e):
+    """A span's name, category, depth and args (values as text)."""
+    return (e.name, e.cat, e.depth,
+            tuple(sorted((k, str(v)) for k, v in e.args.items())))
+
+
+@pytest.mark.parametrize("knob", [dict(tracer=True)])
 def test_unported_knobs_raise(knob):
-    """Paged residency and shards are ported (tests/test_torch_pager.py,
-    tests/test_torch_shards.py); the tracer still names its slice."""
-    kwargs = dict(chunk_size=8, max_len=16, device="cpu")
-    kwargs.update(knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md next slice N6"):
-        RelationalEngine(T_SPEC, PARAMS, **kwargs)
+    """Named for what it pinned before every knob was ported (the last,
+    ``tracer``, raised naming N6).  No knob raises now: the engine with a
+    ``TraceRecorder`` generates the JAX engine's tokens and records the
+    JAX engine's spans (the plan compile, ``session_env``, one
+    ``cat="step"`` span a pipeline step with its ``kind``, ``ops`` and
+    ``tables``, and the executor's ``cat="op"`` spans) in the same
+    order."""
+    assert knob == dict(tracer=True)
+    jt, tt = JTracer(), TTracer()
+    je = JEngine(J_SPEC, PARAMS, chunk_size=8, max_len=16, tracer=jt)
+    te = RelationalEngine(T_SPEC, PARAMS, chunk_size=8, max_len=16,
+                          device="cpu", tracer=tt)
+    assert te.tracer is tt
+    prompt = [3, 17, 42, 5]
+    assert te.generate(prompt, 4).tokens == je.generate(prompt, 4).tokens
+    assert [span_key(e) for e in tt.events] == [
+        span_key(e) for e in jt.events]
+    steps = [e.name for e in tt.events if e.cat == "step"]
+    assert steps == [s.name for s in te._prefill_pipe(4).steps] + 3 * [
+        s.name for s in te.decode_pipe.steps]
 
 
 COST = dict(row_weight=1.0, group_weight=0.05, seek_weight=2.0)
@@ -260,9 +282,41 @@ def test_prefix_block_16_serves():
 
 
 def test_tracer_raises_naming_n6():
-    with pytest.raises(NotImplementedError, match="N6"):
-        RelationalEngine(T_SPEC, PARAMS, chunk_size=8, max_len=16,
-                         device="cpu", tracer=object())
+    """Named for what it pinned before the tracer was ported (it raised
+    naming N6).  Now: a traced suffix session over a cached prefix and a
+    traced batched decode tick record the JAX engine's spans (the
+    decoder's ``cache_views`` / ``cache_writeback`` / ``logits_argmax``
+    among them), their logits equal the untraced engine's bit for bit,
+    and an unsharded engine has no merged shard trace."""
+    jt, tt = JTracer(), TTracer()
+    je = JEngine(J_SPEC, PARAMS, chunk_size=8, max_len=32, tracer=jt)
+    te = RelationalEngine(T_SPEC, PARAMS, chunk_size=8, max_len=32,
+                          device="cpu", tracer=tt)
+    plain = RelationalEngine(T_SPEC, PARAMS, chunk_size=8, max_len=32,
+                             device="cpu")
+    prefix, prompt = [1, 2, 3, 4, 5, 6, 7, 8], [1, 2, 3, 4, 5, 6, 7, 8, 9]
+
+    def caches(eng):
+        return {k: v for k, v in eng.start_session(prefix)["env"].items()
+                if k.startswith(("k_cache", "v_cache"))}
+    jc, tc, pc = caches(je), caches(te), caches(plain)
+    jt.clear()
+    tt.clear()
+    got = te.start_suffix_session(prompt, 8, tc)
+    je.start_suffix_session(prompt, 8, jc)
+    assert np.array_equal(got["logits"], plain.start_suffix_session(
+        prompt, 8, pc)["logits"])
+    jd, td = je.batched_decoder(2, prefix_block=0), te.batched_decoder(
+        2, prefix_block=0)
+    last = [jd.prefill([4, 5, 6], s) for s in (0, 1)]
+    assert [td.prefill([4, 5, 6], s) for s in (0, 1)] == last
+    assert td.decode([0, 1], last) == jd.decode([0, 1], last)
+    assert [span_key(e) for e in tt.events] == [
+        span_key(e) for e in jt.events]
+    assert {"cache_views", "cache_writeback", "logits_argmax",
+            "cache_fill"} <= {e.name for e in tt.events
+                              if e.cat == "decoder"}
+    assert te.merged_shard_trace() is None
 
 
 def test_init_llama_tensors_shapes_and_scales():

@@ -714,3 +714,69 @@ def test_sharded_engine_on_the_card_matches_unsharded(cuda, n, residency):
         last = [d.decode([0, 1], t) for d, t in zip(decs, last)]
         assert last[0] == last[1]
     eng.shard_pool.shutdown()
+
+
+@pytest.mark.parametrize("residency", ["in_memory", "paged"])
+def test_traced_tick_on_the_card_matches_untraced(cuda, residency):
+    """A traced engine on the card (each step span synchronises the current
+    stream) gives the untraced engine's logits and batched tokens bit for
+    bit, records one ``cat="step"`` span a pipeline step with a positive
+    duration, and, paged, one ``pager_fetch:`` span a miss."""
+    from repro_torch.obs import TraceRecorder
+    spec = LlamaSpec(**dict(TINY, n_layers=2))
+    params = init_llama_params(spec, seed=0)
+    paged = (dict(residency="paged", budget_bytes=1 << 16)
+             if residency == "paged" else {})
+    kw = dict(chunk_size=4, max_len=16, device=cuda, **paged)
+    tracer = TraceRecorder()
+    plain = RelationalEngine(spec, params, **kw)
+    traced = RelationalEngine(spec, params, tracer=tracer, **kw)
+    prompt = [3, 17, 42]
+    a, b = plain.start_session(prompt), traced.start_session(prompt)
+    for _ in range(3):
+        assert np.array_equal(a["logits"], b["logits"])
+        plain.session_step(a)
+        traced.session_step(b)
+    tracer.clear()
+    decs = [e.batched_decoder(2) for e in (plain, traced)]
+    last = [[d.prefill([1, 2, 3], 0), d.prefill([9, 8], 1)] for d in decs]
+    for _ in range(3):
+        assert last[0] == last[1]
+        last = [d.decode([0, 1], t) for d, t in zip(decs, last)]
+    assert last[0] == last[1]
+    steps = [e for e in tracer.events if e.cat == "step"]
+    per_tick = len(traced._batched_decode_pipe(2).steps)
+    assert len(steps) == len(traced._prefill_pipe(3).steps) + len(
+        traced._prefill_pipe(2).steps) + 3 * per_tick
+    assert all(e.dur_us > 0 and e.depth == 0 for e in steps)
+    fetches = [e for e in tracer.events if e.name.startswith("pager_fetch:")]
+    assert bool(fetches) == (residency == "paged")
+
+
+def test_sharded_traced_step_on_the_card_gives_worker_spans(cuda):
+    """``shards=2`` with a tracer on the card: every sharded site of a step
+    gives one ``"{step}::shard{s}"`` span in each worker's recorder (each
+    ending in a synchronise of the worker's own stream), the merged trace
+    puts the coordinator and the two workers on three pids, and the
+    logits equal the untraced sharded engine's."""
+    from repro_torch.obs import TraceRecorder
+    spec = LlamaSpec(**dict(TINY, n_layers=1))
+    params = init_llama_params(spec, seed=0)
+    kw = dict(chunk_size=4, max_len=16, device=cuda, shards=2)
+    plain = RelationalEngine(spec, params, **kw)
+    traced = RelationalEngine(spec, params, tracer=TraceRecorder(), **kw)
+    prompt = [3, 17, 42]
+    a, b = plain.start_session(prompt), traced.start_session(prompt)
+    plain.session_step(a)
+    traced.session_step(b)
+    assert np.array_equal(a["logits"], b["logits"])
+    sites = traced.shard_pool.stats.sites
+    for w in traced.shard_pool.workers:
+        spans = [e for e in w.tracer.events if e.cat == "shard"]
+        assert len(spans) == sites > 0
+        assert all(e.name.endswith(f"::shard{w.index}") and e.dur_us > 0
+                   for e in spans)
+    merged = traced.merged_shard_trace()
+    assert {e["pid"] for e in merged["traceEvents"]} == {1, 2, 3}
+    for eng in (plain, traced):
+        eng.shard_pool.shutdown()

@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro.obs as jobs  # noqa: E402
+import repro_torch.obs as tobs  # noqa: E402
 from repro.core.llama_graph import LlamaSpec as JSpec  # noqa: E402
 from repro.core.llama_graph import init_llama_params  # noqa: E402
 from repro.obs.metrics import MetricsRegistry as JRegistry  # noqa: E402
@@ -249,9 +251,44 @@ def test_pad_to_pads_the_cold_entry():
     assert tuple(pagers[1].get("w").shape) == (2, 8)
 
 
+def span_key(e):
+    """A span's name, category, depth and args (values as text)."""
+    return (e.name, e.cat, e.depth,
+            tuple(sorted((k, str(v)) for k, v in e.args.items())))
+
+
 def test_tracer_raises_naming_n6():
-    with pytest.raises(NotImplementedError, match="N6"):
-        WeightPager(1 << 20, tracer=object(), device="cpu")
+    """Named for what it pinned before the tracer was ported
+    (``WeightPager(tracer=)`` raised naming N6).  Now: one
+    ``pager_fetch:`` span a miss and one ``pager_prefetch:`` span a
+    prefetched entry, at depth 1 with the cold entry's bytes, the request
+    ids of the ambient context on the fetches and none on the prefetch
+    thread's, equal to the reference pager's on one add/get/prefetch
+    sequence."""
+    rng = np.random.default_rng(0)
+    tables = {f"w{i}": rng.standard_normal((4, 8 * (i + 1))).astype(
+        np.float32) for i in range(5)}
+    spans = []
+    for obs, pager_cls, kw in ((jobs, JPager, {}),
+                               (tobs, WeightPager, {"device": "cpu"})):
+        tracer = obs.TraceRecorder()
+        pager = pager_cls(2000, policy="pin", tracer=tracer, **kw)
+        for name, arr in tables.items():
+            pager.add(name, arr)
+        with obs.activate(obs.TraceContext.for_request(3, "cd" * 8)):
+            for name in ("w0", "w1", "w0", "w4", "w2"):
+                pager.get(name)
+        pager.prefetch(["w3", "w1"]).join(timeout=30)
+        pager.get("w3")
+        spans.append([span_key(e) for e in tracer.events])
+    assert spans[0] == spans[1]
+    fetched = [k[0] for k in spans[1]]
+    assert fetched[:4] == ["pager_fetch:w0", "pager_fetch:w1",
+                           "pager_fetch:w4", "pager_fetch:w2"]
+    assert fetched[4].startswith("pager_prefetch:")
+    assert all(k[1] == "pager" and k[2] == 1 for k in spans[1])
+    assert ("rids", "[3]") in spans[1][0][3]
+    assert all(a[0] != "rids" for a in spans[1][-1][3])
 
 
 def test_cuda_pager_raises_without_cuda(monkeypatch):

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro.obs as jobs  # noqa: E402
+import repro_torch.obs as tobs  # noqa: E402
 from repro.core import relational as jra  # noqa: E402
 from repro.core.executor import DenseTable as JTable  # noqa: E402
 from repro.core.llama_graph import LlamaSpec as JSpec  # noqa: E402
@@ -253,8 +255,9 @@ def test_merged_metrics():
     busy = [e for e in dump["shard_worker_busy_seconds"]
             if e["labels"].get("shard") == "0"]
     assert busy and busy[0]["count"] == runs["0"]
-    # tracing is off: no merged trace
-    assert eng.merged_shard_trace() is None
+    # tracing is off: the merged trace has no events, as the reference's
+    assert eng.merged_shard_trace() == {"displayTimeUnit": "ms",
+                                        "traceEvents": []}
     eng.shard_pool.shutdown()
 
 
@@ -266,11 +269,40 @@ def test_unsharded_engine_has_no_shard_surface():
 
 
 def test_tracing_raises_naming_n6():
-    pool = ShardWorkerPool(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="N6"):
-        pool.merged_chrome_trace(object())
-    with pytest.raises(NotImplementedError, match="N6"):
-        ShardWorkerPool(2, trace=True, device="cpu")
+    """Named for what it pinned before the tracer was ported (shard
+    tracing raised naming N6); it now holds the traced shard pool to the
+    reference's (``TestShardObservability::test_merged_metrics_and_trace``
+    and the JAX engine's merged trace): ``ShardWorkerPool(trace=True)``
+    gives each worker a recorder, each per-shard plan copy one
+    ``"{step}::shard{s}"`` span (``cat="shard"``) carrying the
+    coordinator's request ids, and ``merged_shard_trace`` puts the
+    coordinator on pid 1 and each worker on its own pid, with the same
+    events as the JAX engine's."""
+    traces, toks = [], []
+    for eng_cls, obs, kw in ((JEngine, jobs, {}),
+                             (RelationalEngine, tobs, {"device": "cpu"})):
+        tracer = obs.TraceRecorder()
+        spec = J_SPEC if eng_cls is JEngine else T_SPEC
+        eng = eng_cls(spec, PARAMS, chunk_size=CS, max_len=8, shards=2,
+                      tracer=tracer, **kw)
+        with obs.activate(obs.TraceContext.for_request(5, "ef" * 8)):
+            toks.append(_tokens(eng, steps=2))
+        merged = eng.merged_shard_trace()
+        traces.append(sorted(
+            (e["name"], e["cat"], e["pid"], e["tid"],
+             sorted((k, str(v)) for k, v in e["args"].items()))
+            for e in merged["traceEvents"]))
+        eng.shard_pool.shutdown()
+    assert toks[0] == toks[1] and traces[0] == traces[1]
+    assert {e[2] for e in traces[1]} == {1, 2, 3}
+    shard = [e for e in traces[1] if e[1] == "shard"]
+    assert shard and {dict(e[4])["track"] for e in shard} == {"shard0",
+                                                              "shard1"}
+    assert all(dict(e[4])["rids"] == "[5]" for e in shard)
+    pool = ShardWorkerPool(2, trace=True, device="cpu")
+    assert all(w.tracer is not None for w in pool.workers)
+    assert pool.merged_chrome_trace() == {"displayTimeUnit": "ms",
+                                          "traceEvents": []}
     pool.shutdown()
 
 
