@@ -26,7 +26,13 @@ with 2 shards (phase 8), and last through the HTTP server with a tracer,
 a metrics registry and the drift watchdog (phase 9: eight concurrent SSE
 streams through a page pool that forces preemption, shared-prefix traffic,
 the flight recorder's ``/debug/*`` endpoints, and the same streams again
-untraced for the tracer's cost).  Each serving run checks that every GEMM
+untraced for the tracer's cost).  Phase 10 runs the paper's dense baseline,
+``DirectEngine`` over the model stack, on phase 5's weights carried through
+the bridge: phase 5's requests and fixed prompt in memory (a decode step
+profiled), one request paged from pinned host memory through phase 7's
+budget, and every model family (the TINY configs, OLMoE-1B-7B and
+Mamba2-2.7B at their published widths cut to 2 layers) on the card against
+the CPU; it launches none of K1-K3.  Each serving run checks that every GEMM
 went through K1 ``chunked_matmul`` (once a shard at a sharded site), every
 decode attention (and one-token suffix) through K2 ``paged_attention``
 and every prefill attention (cold, or a suffix over a cached prefix)
@@ -63,9 +69,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Llama-3-8B widths (src/repro/configs/llama3_8b.py)
-VOCAB, D_MODEL, N_HEADS, N_KV, D_FF, THETA = 128256, 4096, 32, 8, 14336, 5e5
-N_LAYERS = 32
+# Llama-3-8B's widths and depth, from the port's model registry (this
+# import fails outside a checkout)
+from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B  # noqa: E402
+
+VOCAB, D_MODEL, N_HEADS, N_KV, D_FF, THETA = (
+    LLAMA3_8B.vocab, LLAMA3_8B.d_model, LLAMA3_8B.n_heads, LLAMA3_8B.n_kv,
+    LLAMA3_8B.d_ff, LLAMA3_8B.rope_theta)
+N_LAYERS = LLAMA3_8B.n_layers
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory bytes/s
 # and non-tensor-core float32 FLOP/s.  The bound of a kernel is the larger
@@ -1214,7 +1225,8 @@ def _parity_batched_and_suffix(engines, spec, engine_mod, paged_attention,
 def _spec(n_layers: int):
     from repro_torch.core.llama_graph import LlamaSpec
     return LlamaSpec(vocab=VOCAB, d_model=D_MODEL, n_layers=n_layers,
-                     n_heads=N_HEADS, n_kv=N_KV, d_ff=D_FF, rope_theta=THETA)
+                     n_heads=N_HEADS, n_kv=N_KV, d_ff=D_FF, rope_theta=THETA,
+                     eps=LLAMA3_8B.eps)
 
 
 def _serve_cold_requests(eng, tag: str):
@@ -1224,7 +1236,8 @@ def _serve_cold_requests(eng, tag: str):
     requests arrive.  Every kernel's count is zeroed just before the run
     and read just after: K1 7·L + 1 a pipeline call (N − 1 more a sharded
     site), K2 L a decode tick, K3 L a prefill.  Returns the launches, the
-    decoder, the KV page table and each request's (TTFT, TPOT) in ms."""
+    decoder, the KV page table and each request's prompt, tokens, TTFT
+    and TPOT (ms), by request id."""
     from repro_torch import kernels
     from repro_torch.serving.kvcache import PagedKVCache, PagedKVConfig
     from repro_torch.serving.scheduler import ContinuousBatcher, Request
@@ -1295,14 +1308,17 @@ def _serve_cold_requests(eng, tag: str):
         f"layouts), paged_attention {launches['paged_attention']} = "
         f"{n_layers} x {decodes} decode ticks, flash_attention "
         f"{launches['flash_attention']} = {n_layers} x {prefills} prefills")
-    walls = {}
+    served = {}
     for req in sorted(done, key=lambda r: r.rid):
         tpot = (req.done_s - req.first_token_s) / (len(req.generated) - 1)
-        walls[req.rid] = (req.first_token_s * 1e3, tpot * 1e3)
+        served[req.rid] = {"prompt": list(req.prompt),
+                           "tokens": list(req.generated),
+                           "ttft_ms": req.first_token_s * 1e3,
+                           "tpot_ms": tpot * 1e3}
         log(f"  {tag} req{req.rid}: prompt {len(req.prompt)} tokens, ttft "
             f"{req.first_token_s * 1e3:.1f} ms, tpot {tpot * 1e3:.1f} ms, "
             f"tokens {req.generated}")
-    return launches, dec, kv, walls
+    return launches, dec, kv, served
 
 
 def _fixed_session(eng, tokens=None):
@@ -1352,7 +1368,7 @@ def phase_serving(n_layers: int):
     log(f"decode plan: {_plan_summary(eng)}; column twins "
         f"{twins / 1e9:.2f} GB; memory allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    launches, dec, kv, walls = _serve_cold_requests(eng, "[phase 5]")
+    launches, dec, kv, served = _serve_cold_requests(eng, "[phase 5]")
     log(f"max memory allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         f" GB")
     tick = profile_tick(dec)
@@ -1362,7 +1378,7 @@ def phase_serving(n_layers: int):
     log(f"fixed prompt (seed {FIXED_PROMPT_SEED}): prefill T=32 + "
         f"{FIXED_STEPS} decode steps, tokens {fixed[1]}")
     torch.cuda.empty_cache()
-    return launches, eng, fixed, tick, walls
+    return launches, eng, fixed, tick, served
 
 
 def _hold_to_fixed(eng, fixed, tag: str) -> float:
@@ -1886,7 +1902,7 @@ def serve_http(eng):
         "token_divergences": worst}
 
 
-def phase_http_serving(fixed, walls5):
+def phase_http_serving(fixed, served5):
     """HTTP serving at Llama-3-8B width and depth under the reference's
     defaults, in memory, with a ``TraceRecorder`` and a
     ``MetricsRegistry`` attached and the drift watchdog armed: the fixed
@@ -1912,9 +1928,10 @@ def phase_http_serving(fixed, walls5):
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     diff = _hold_to_fixed(eng, fixed, "[phase 9, traced]")
     launches, summary = serve_http(eng)
-    for rid, (ttft, tpot) in walls5.items():
+    for rid, r in served5.items():
         log(f"  [phase 9] req{rid}: phase 5 (ContinuousBatcher, no HTTP) "
-            f"ttft {ttft:.1f} ms, tpot {tpot:.1f} ms; through HTTP ttft "
+            f"ttft {r['ttft_ms']:.1f} ms, tpot {r['tpot_ms']:.1f} ms; "
+            f"through HTTP ttft "
             f"{summary['http_ttft_tpot_ms'][rid][0]:.1f} ms, tpot "
             f"{summary['http_ttft_tpot_ms'][rid][1]:.1f} ms")
     log(f"[phase 9] max memory allocated "
@@ -1924,6 +1941,238 @@ def phase_http_serving(fixed, walls5):
     torch.cuda.empty_cache()
     summary["max_abs_logit_traced"] = diff
     return launches, summary
+
+
+def _direct_logits(eng, prompt, tokens):
+    """``prompt``'s prefill through ``eng`` (a DirectEngine), then one
+    decode step for each of ``tokens`` (teacher-forced): the last
+    position's logits of each call on the host [1 + len(tokens), vocab]."""
+    tf, cfg = eng.tf, eng.cfg
+    caches = tf.init_caches(cfg, 1, eng.max_len, dtype=torch.float32,
+                            device="cuda")
+    lg, caches, _ = tf.prefill(eng.params, torch.tensor([prompt],
+                                                        device="cuda"),
+                               cfg, caches)
+    logits = [lg[0, -1].cpu().numpy()]
+    for i, tok in enumerate(tokens):
+        lg, caches = tf.decode_step(eng.params, torch.tensor(
+            [[tok]], device="cuda"), caches, len(prompt) + i, cfg)
+        logits.append(lg[0, -1].cpu().numpy())
+    return np.stack(logits)
+
+
+def profile_direct_step(eng) -> dict:
+    """Where one DirectEngine decode step (B=1, a 32-token prompt's next
+    positions over a 512-row cache) spends device time
+    (:func:`_profile_steps`); each step ends in the argmax's copy to the
+    host, as ``generate``'s do."""
+    tf, cfg = eng.tf, eng.cfg
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, VOCAB, (1, 32))).cuda()
+    caches = tf.init_caches(cfg, 1, eng.max_len, dtype=torch.float32,
+                            device="cuda")
+    lg, caches, _ = tf.prefill(eng.params, prompt, cfg, caches)
+    state = {"tok": int(torch.argmax(lg[0, -1])), "pos": 32}
+
+    def step():
+        lg, _ = tf.decode_step(eng.params, torch.tensor(
+            [[state["tok"]]], device="cuda"), caches, state["pos"], cfg)
+        state["tok"] = int(torch.argmax(lg[0, -1]))
+        state["pos"] += 1
+    for _ in range(2):  # warm: the allocator
+        step()
+    return _profile_steps(step, "direct decode step (B=1)")
+
+
+def _families_on_the_card() -> dict:
+    """Every assigned family at its TINY size, and Llama-3's: ``forward``,
+    then ``prefill`` and 3 ``decode_step``s on the card against the port on
+    the CPU, the same weights (drawn on the CPU, carried to the card).
+    Then OLMoE-1B-7B and Mamba2-2.7B at their published widths, each cut to
+    2 layers (from 16 and 64) and cast to f32 (their configs say bfloat16),
+    drawn on the card and carried to the CPU.  f32 logits within 1e-4;
+    returns each case's max |difference|."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ASSIGNED
+    from repro_torch.models import transformer as tf
+    cases = [(a, get_config(a, tiny=True), "cpu")
+             for a in ASSIGNED + ["llama3-8b"]]
+    cases += [(f"{a} (published widths, 2 layers, f32)",
+               dataclasses.replace(get_config(a), n_layers=2,
+                                   dtype="float32", param_dtype="float32"),
+               "cuda")
+              for a in ("olmoe-1b-7b", "mamba2-2.7b")]
+    B, T, extra = 2, 12, 3
+    diffs = {}
+    for name, cfg, home in cases:
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, 0, device=home)
+        trees = {d: tf.tree_map(lambda t: t.to(d), params)
+                 for d in ("cuda", "cpu")}
+        del params
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (B, T + extra), generator=gen)
+        aux = None
+        if cfg.family in ("encdec", "vlm"):
+            n = cfg.n_frames if cfg.family == "encdec" else cfg.n_image_tokens
+            aux = torch.randn(B, n, cfg.d_model, generator=gen)
+        out = {}
+        for d, p in trees.items():
+            batch = {"tokens": toks.to(d)}
+            if aux is not None:
+                batch["frames" if cfg.family == "encdec" else "images"] = \
+                    aux.to(d)
+            logits = [tf.forward(p, batch, cfg)]
+            caches = tf.init_caches(cfg, B, T + extra, dtype=torch.float32,
+                                    device=d)
+            lg, caches, ac = tf.prefill(
+                p, batch["tokens"][:, :T], cfg, caches,
+                aux_input=None if aux is None else aux.to(d))
+            logits.append(lg)
+            for i in range(extra):
+                lg, caches = tf.decode_step(
+                    p, batch["tokens"][:, T + i: T + i + 1], caches, T + i,
+                    cfg, aux_caches=ac)
+                logits.append(lg)
+            out[d] = [t.cpu().numpy() for t in logits]
+        for g, c in zip(out["cuda"], out["cpu"]):
+            np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4,
+                                       err_msg=name)
+        diffs[name] = max(float(np.abs(g - c).max())
+                          for g, c in zip(out["cuda"], out["cpu"]))
+        log(f"  {name} [{cfg.family}]: forward, prefill T={T} + {extra} "
+            f"decode steps, card vs CPU max|diff| {diffs[name]:.3e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del trees, out
+    return diffs
+
+
+def phase_direct(fixed, served5, tick5, h2d_rate: float) -> dict:
+    """The paper's dense baseline on the card: ``DirectEngine`` over the
+    model stack at Llama-3-8B width and depth, from phase 5's weights
+    (``init_llama_tensors`` with the same seed on the same card) through
+    the bridge.  (a) in memory: the fixed prompt held to phase 5's logits,
+    phase 5's requests held to its tokens, TTFT and TPOT beside phase 5's,
+    a decode step profiled; (b) paged from pinned host memory through phase
+    7's 16 GiB budget, without prefetch: one request's tokens equal (a)'s;
+    (c) every family on the card against the CPU.  No K1-K3 launch."""
+    from repro_torch import kernels
+    from repro_torch.core.bridge import llama_params_to_tree, spec_to_config
+    from repro_torch.core.llama_graph import init_llama_tensors
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.serving.engine import DirectEngine
+    log(f"== phase 10: the dense baseline (DirectEngine) at Llama-3-8B "
+        f"width, {N_LAYERS} layers, on the card")
+    wrappers = [getattr(kernels, name) for name in KERNELS]
+    for fn in wrappers:
+        fn.launches = fn.calls = 0
+    spec = _spec(N_LAYERS)
+    cfg = spec_to_config(spec)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tables = init_llama_tensors(spec, seed=0, device="cuda")
+    tree = llama_params_to_tree(tables, spec, device="cuda")
+    del tables
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(tree))
+    log(f"(a) phase 5's weights drawn and carried through the bridge in "
+        f"{time.perf_counter() - t0:.1f} s: {n_params / 1e9:.3f} B "
+        f"parameters, {4 * n_params / 1e9:.2f} GB f32 tree; max memory "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the "
+        f"tables and the tree together)")
+    eng = DirectEngine(cfg, tree, max_len=512, device="cuda")
+    del tree
+    ref_logits, ref_tokens = fixed
+    prompt = [int(t) for t in np.random.default_rng(
+        FIXED_PROMPT_SEED).integers(0, VOCAB, 32)]
+    diff = _assert_logits(_direct_logits(eng, prompt, ref_tokens),
+                          ref_logits)
+    log(f"(a) fixed prompt, prefill T=32 + {FIXED_STEPS} decode steps fed "
+        f"phase 5's tokens: max|Δlogit| against phase 5's relational "
+        f"engine {diff:.3e}")
+    eng.generate(served5[0]["prompt"][:8], 2)  # warm: cuBLAS, allocator
+    walls, diverged = {}, {}
+    for rid, r in served5.items():
+        res = eng.generate(r["prompt"], len(r["tokens"]))
+        walls[rid] = (res.ttft_s * 1e3, res.tpot_s * 1e3)
+        i = next((j for j, (a, b) in enumerate(zip(res.tokens, r["tokens"]))
+                  if a != b), None)
+        if i is not None:  # the top-2 margin there, fed phase 5's tokens
+            top2 = np.sort(_direct_logits(eng, r["prompt"],
+                                          r["tokens"][:i])[-1])[-2:]
+            margin = float(top2[1] - top2[0])
+            assert margin <= 1e-3, (rid, i, margin, res.tokens, r["tokens"])
+            diverged[rid] = (i, margin)
+        log(f"  (a) req{rid}: prompt {len(r['prompt'])} tokens, direct ttft "
+            f"{walls[rid][0]:.1f} ms, tpot {walls[rid][1]:.1f} ms; phase 5 "
+            f"(relational, ContinuousBatcher) ttft {r['ttft_ms']:.1f} ms, "
+            f"tpot {r['tpot_ms']:.1f} ms; tokens {res.tokens}"
+            + ("" if i is None else f" (first differs from phase 5's at "
+               f"step {i}, top-2 margin {diverged[rid][1]:.2e})"))
+    step = profile_direct_step(eng)
+    if step["busy_ms"] is not None and tick5["busy_ms"] is not None:
+        log(f"(a) direct decode step (B=1) against phase 5's relational tick "
+            f"(B=3, bucket 4): host wall {step['wall_ms']:.2f} against "
+            f"{tick5['wall_ms']:.2f} ms, device busy {step['busy_ms']:.2f} "
+            f"against {tick5['busy_ms']:.2f} ms, idle share "
+            f"{step['idle_share']:.3f} against {tick5['idle_share']:.3f}")
+    in_memory_peak = torch.cuda.max_memory_allocated()
+    log(f"(a) max memory allocated {in_memory_peak / 1e9:.2f} GB")
+    tokens_a = eng.generate(served5[0]["prompt"],
+                            len(served5[0]["tokens"])).tokens
+
+    # (b) paged from pinned host memory, phase 7's budget, no prefetch
+    t0 = time.perf_counter()
+    host = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          pin_memory=True).copy_(t),
+                    eng.params)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paged = DirectEngine(cfg, host, residency="paged",
+                         budget_bytes=PAGED_BUDGET, max_len=512,
+                         device="cuda")
+    log(f"(b) the tree copied to pinned host memory and registered in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{paged.pager.total_cold_bytes() / 1e9:.2f} GB cold, budget "
+        f"{PAGED_BUDGET / 2**30:.0f} GiB, pager policy "
+        f"{paged.pager.policy}")
+    n_new = len(served5[0]["tokens"])
+    res = paged.generate(served5[0]["prompt"], n_new)
+    assert res.tokens == tokens_a, (res.tokens, tokens_a)
+    stats = res.pager_stats
+    assert stats["peak_bytes"] <= PAGED_BUDGET and stats["evictions"] > 0
+    per_token = stats["bytes_loaded"] / n_new
+    bound_ms = per_token / h2d_rate * 1e3
+    paged_peak = torch.cuda.max_memory_allocated()
+    log(f"(b) req0 paged: tokens equal (a)'s; ttft {res.ttft_s * 1e3:.1f} "
+        f"ms, tpot {res.tpot_s * 1e3:.1f} ms; {per_token / 1e9:.2f} GB "
+        f"streamed a token ({n_new} tree pulls), a bound of {bound_ms:.1f} "
+        f"ms a token at phase 7's pinned {h2d_rate / 1e9:.2f} GB/s; pager "
+        f"hits {stats['hits']}, misses {stats['misses']}, evictions "
+        f"{stats['evictions']}; peak held {stats['peak_bytes'] / 1e9:.2f} "
+        f"GB (<= budget), max memory allocated {paged_peak / 1e9:.2f} GB "
+        f"(each pull holds the whole tree, as the reference's does)")
+    del paged, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    _release_pinned()
+
+    log("(c) the model families on the card against the CPU")
+    families = _families_on_the_card()
+    launched = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+    assert not any(launched.values()), launched
+    log(f"K1-K3 launches in phase 10: {launched} (the dense path runs none)")
+    return {"max_abs_logit": diff, "walls_ms": walls,
+            "diverged": diverged, "step": step,
+            "in_memory_max_allocated": in_memory_peak,
+            "paged": {"ttft_ms": res.ttft_s * 1e3,
+                      "tpot_ms": res.tpot_s * 1e3, "pager": stats,
+                      "bytes_a_token": per_token, "bound_ms": bound_ms,
+                      "max_allocated": paged_peak},
+            "families_max_abs_diff": families}
 
 
 def _compile_logged(eng, label, compile_fn, *args):
@@ -2106,35 +2355,28 @@ def phase_prefix_serving(eng):
     return launches, ttft
 
 
-def profile_tick(dec, pager=None) -> dict:
-    """Where one batched decode tick (3 sequences) spends device time:
-    kernels by name from ``torch.profiler``, and the device's idle share of
-    the tick's host wall time.  Returns the median unprofiled wall, the
-    device busy time (None where the profiler saw no device time) and,
-    given the engine's pager, the bytes it loaded a tick."""
+def _profile_steps(step, what: str) -> dict:
+    """Where one step spends device time: the median of 5 unprofiled host
+    walls of ``step`` (which returns after a copy to the host), then one
+    step under ``torch.profiler``: device busy time, the device's idle
+    share of the step's host wall, and the kernels by name.  Returns the
+    median wall and the device busy time (None where the profiler saw no
+    device time)."""
     from torch.profiler import ProfilerActivity, profile
-    rng = np.random.default_rng(3)
-    last = [dec.prefill([int(t) for t in rng.integers(0, VOCAB, 32)], s)
-            for s in range(3)]
-    for _ in range(2):  # warm: view cache and allocator
-        last = dec.decode([0, 1, 2], last)
     walls = []
-    loaded = pager.stats.bytes_loaded if pager is not None else 0
-    for _ in range(5):  # decode returns after the logits' copy to the host
+    for _ in range(5):
         t0 = time.perf_counter()
-        last = dec.decode([0, 1, 2], last)
+        step()
         walls.append((time.perf_counter() - t0) * 1e3)
     out = {"wall_ms": statistics.median(walls), "walls_ms": walls,
            "busy_ms": None}
-    if pager is not None:
-        out["bytes_a_tick"] = (pager.stats.bytes_loaded - loaded) / len(walls)
-    log(f"decode tick (B=3, bucket 4) host wall without the profiler: "
-        f"median of 5 {statistics.median(walls):.2f} ms (min "
-        f"{min(walls):.2f}, max {max(walls):.2f})")
+    log(f"{what} host wall without the profiler: median of 5 "
+        f"{statistics.median(walls):.2f} ms (min {min(walls):.2f}, max "
+        f"{max(walls):.2f})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
-        dec.decode([0, 1, 2], last)
+        step()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, busy = {}, 0.0
     for e in prof.events():
@@ -2143,17 +2385,41 @@ def profile_tick(dec, pager=None) -> dict:
             busy += us
             by_name[e.name] = by_name.get(e.name, 0.0) + us
     if not by_name:
-        log("tick profile: the profiler recorded no device time "
-            "(device busy share not measured)")
+        log(f"{what} profile: the profiler recorded no device time "
+            f"(device busy share not measured)")
         return out
     out["busy_ms"] = busy / 1e3
     out["idle_share"] = 1 - busy / wall_us
-    log(f"one decode tick (B=3, bucket 4) under the profiler: wall "
-        f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle share "
+    out["top_items_ms"] = [
+        (name[:90], us / 1e3)
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]
+    log(f"one {what} under the profiler: wall {wall_us / 1e3:.2f} ms, "
+        f"device busy {busy / 1e3:.2f} ms, idle share "
         f"{1 - busy / wall_us:.3f}; against the unprofiled median wall "
         f"{1 - busy / 1e3 / statistics.median(walls):.3f}")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"  {us / 1e3:9.3f} ms  {us / busy:6.1%}  {name[:90]}")
+    for name, ms in out["top_items_ms"]:
+        log(f"  {ms:9.3f} ms  {ms * 1e3 / busy:6.1%}  {name}")
+    return out
+
+
+def profile_tick(dec, pager=None) -> dict:
+    """Where one batched decode tick (3 sequences) spends device time
+    (:func:`_profile_steps`); given the engine's pager, also the bytes it
+    loaded a tick over the 5 timed ticks."""
+    rng = np.random.default_rng(3)
+    last = [dec.prefill([int(t) for t in rng.integers(0, VOCAB, 32)], s)
+            for s in range(3)]
+    for _ in range(2):  # warm: view cache and allocator
+        last = dec.decode([0, 1, 2], last)
+    loaded = [pager.stats.bytes_loaded if pager is not None else 0]
+
+    def tick():  # decode returns after the logits' copy to the host
+        last[:] = dec.decode([0, 1, 2], last)
+        if pager is not None:
+            loaded.append(pager.stats.bytes_loaded)
+    out = _profile_steps(tick, "decode tick (B=3, bucket 4)")
+    if pager is not None:
+        out["bytes_a_tick"] = (loaded[5] - loaded[0]) / 5
     return out
 
 
@@ -2161,7 +2427,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    import repro_torch  # noqa: F401  (fails outside a checkout)
     t_all = time.perf_counter()
 
     def timed(label, fn, *args):
@@ -2186,8 +2451,8 @@ def main() -> int:
                                    phase_shard_kernels, flush)
     del flush
     _, phase4_shard_launches = timed("phase 4", phase_engine_parity)
-    serving, eng, fixed, tick5, walls5 = timed("phase 5", phase_serving,
-                                               N_LAYERS)
+    serving, eng, fixed, tick5, served5 = timed("phase 5", phase_serving,
+                                                N_LAYERS)
     prefix, _ = timed("phase 6", phase_prefix_serving, eng)
     cache_layout = eng.cache_layout
     del eng
@@ -2195,7 +2460,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paged, paged_summary = timed("phase 7", phase_paged_serving, fixed)
     sharded, _ = timed("phase 8", phase_sharded_serving, fixed, tick5)
-    http, http_summary = timed("phase 9", phase_http_serving, fixed, walls5)
+    http, http_summary = timed("phase 9", phase_http_serving, fixed, served5)
+    direct_summary = timed("phase 10", phase_direct, fixed, served5, tick5,
+                           paged_summary["h2d_bytes_per_s"])
     # each main path's counts, zeroed just before it and read just after:
     # phase 5's cold serving, phase 6's prefix-cached serving per bind mode,
     # phase 7's paged serving, phase 8's sharded serving and phase 9's HTTP
@@ -2334,6 +2601,7 @@ def main() -> int:
                          f"torch.matmul on the same views"})
     log(f"phase 7 (paged): {json.dumps(paged_summary)}")
     log(f"phase 9 (HTTP): {json.dumps(http_summary)}")
+    log(f"phase 10 (direct): {json.dumps(direct_summary)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

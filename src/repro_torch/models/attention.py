@@ -1,0 +1,258 @@
+"""Attention blocks: GQA/MQA (+qk-norm, sliding window), cross-attention,
+and DeepSeek-style MLA (multi-head latent attention) with compressed cache.
+
+A single code path serves training (no cache), prefill (cache write) and
+decode (cache append + single query): the query block always attends over a
+KV block whose positions are explicit, and masking is computed from
+positions.
+
+The attention is the reference's ``_sdpa`` written out (einsum, f32 scores
+plus an additive ``-1e30`` mask, softmax, einsum): the dense baseline stays
+the reference's function.  A cache write goes into the cache tensors in
+place; a write past the cache's end raises ``IndexError`` where the
+reference's ``dynamic_update_slice`` clamps the start so the update fits.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (DTYPES, dense_init, rope_apply,
+                                       rope_table, vec_norm_apply)
+
+NEG_INF = -1e30
+
+
+# -- masking -------------------------------------------------------------------
+
+
+def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+              window=0, kv_valid=None) -> torch.Tensor:
+    """Additive mask [Tq, Skv] from explicit positions.  ``window`` is an
+    int or a 0-d tensor (a per-layer schedule entry); 0 disables it."""
+    q = q_pos[:, None]
+    s = kv_pos[None, :]
+    ok = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= s <= q
+    window = int(window)
+    if window > 0:
+        ok &= s > q - window
+    if kv_valid is not None:
+        ok &= s < kv_valid
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _write(buf: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """``buf[:, start:start + T] = new`` in place, inside the cache."""
+    T = new.shape[1]
+    if not 0 <= start <= buf.shape[1] - T:
+        raise IndexError(f"cache write of {T} rows at {start} past a cache "
+                         f"of {buf.shape[1]} rows")
+    buf[:, start:start + T] = new.to(buf.dtype)
+
+
+# -- grouped-query attention -----------------------------------------------------
+
+
+def attn_init(gen, cfg: ModelConfig, cross: bool = False,
+              n_heads: Optional[int] = None, n_kv: Optional[int] = None, *,
+              device) -> Dict:
+    d, dh = cfg.d_model, cfg.head_dim
+    H = n_heads or cfg.n_heads
+    Hkv = n_kv or cfg.n_kv
+    p = {
+        "wq": dense_init(gen, d, (H, dh), cfg, device=device),
+        "wk": dense_init(gen, d, (Hkv, dh), cfg, device=device),
+        "wv": dense_init(gen, d, (Hkv, dh), cfg, device=device),
+        "wo": dense_init(gen, H * dh, d, cfg, device=device).reshape(H, dh, d),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(dh, dtype=p["wq"].dtype, device=device)
+        p["k_norm"] = torch.ones(dh, dtype=p["wq"].dtype, device=device)
+    if cross:  # llama-vision tanh gate
+        p["gate"] = torch.zeros((), dtype=p["wq"].dtype, device=device)
+    return p
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """Grouped scaled-dot-product attention.
+
+    q [B,T,H,dh], k/v [B,S,Hkv,dh], mask [T,S] additive (f32).
+    """
+    B, T, H, dh = q.shape
+    g = H // n_kv
+    qg = q.reshape(B, T, n_kv, g, dh)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k) / torch.tensor(
+        dh, dtype=q.dtype).sqrt()
+    scores = scores.float() + mask
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", p, v)
+    return out.reshape(B, T, H, dh)
+
+
+def attn_apply(
+    p: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    q_pos: torch.Tensor,
+    kv_x: Optional[torch.Tensor] = None,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+    kv_valid=None,
+    causal: bool = True,
+    window=0,
+    rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    kv_rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    meta_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Returns (output, cache).
+
+    cache: {"k","v"} [B, S_max, Hkv, dh]; the new K/V are written into it
+    at ``cache_pos`` in place, and the same dict is returned.
+    kv_x: source for K/V (cross-attention).
+    """
+    B, T, _ = x.shape
+    Hkv = p["wk"].shape[1]
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    if cfg.qk_norm:
+        q = vec_norm_apply(p.get("q_norm"), q, cfg.eps)
+
+    kv_src = x if kv_x is None else kv_x
+    k = torch.einsum("btd,dhk->bthk", kv_src, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", kv_src, p["wv"])
+    if cfg.qk_norm:
+        k = vec_norm_apply(p.get("k_norm"), k, cfg.eps)
+
+    if rope_cs is not None:
+        q = rope_apply(q, *rope_cs)
+        k = rope_apply(k, *(kv_rope_cs or rope_cs))
+
+    if cache is not None:
+        start = int(cache_pos) if cache_pos is not None else 0
+        _write(cache["k"], k, start)
+        _write(cache["v"], v, start)
+        k, v = cache["k"], cache["v"]
+        kv_pos = torch.arange(k.shape[1], device=x.device)
+    else:
+        kv_pos = q_pos if kv_x is None else torch.arange(k.shape[1],
+                                                         device=x.device)
+
+    if meta_kv is not None:  # hymba meta tokens prepended to the KV block
+        mk, mv = meta_kv
+        k = torch.cat([mk.expand((B,) + mk.shape[-3:]), k], 1)
+        v = torch.cat([mv.expand((B,) + mv.shape[-3:]), v], 1)
+        n_meta = mk.shape[-3]
+        kv_pos = torch.cat([torch.full((n_meta,), -1, dtype=kv_pos.dtype,
+                                       device=kv_pos.device), kv_pos])
+
+    mask = make_mask(q_pos, kv_pos, causal=causal and kv_x is None,
+                     window=window, kv_valid=kv_valid)
+    if meta_kv is not None:  # meta tokens always visible
+        mask[:, : meta_kv[0].shape[-3]] = 0.0
+
+    out = _sdpa(q, k, v, mask, Hkv)
+    y = torch.einsum("bthd,hdD->btD", out, p["wo"])
+    if "gate" in p:
+        y = torch.tanh(p["gate"]) * y
+    return y, cache
+
+
+# -- multi-head latent attention (DeepSeek-V3) ------------------------------------
+
+
+def mla_init(gen, cfg: ModelConfig, *, device) -> Dict:
+    d = cfg.d_model
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dq = cfg.nope_head_dim + cfg.rope_head_dim
+    H = cfg.n_heads
+    pdt = DTYPES[cfg.param_dtype]
+    return {
+        "wq_a": dense_init(gen, d, qr, cfg, device=device),
+        "q_norm": torch.ones(qr, dtype=pdt, device=device),
+        "wq_b": dense_init(gen, qr, (H, dq), cfg, device=device),
+        "wkv_a": dense_init(gen, d, kvr + cfg.rope_head_dim, cfg,
+                            device=device),
+        "kv_norm": torch.ones(kvr, dtype=pdt, device=device),
+        "wkv_b": dense_init(gen, kvr, (H, cfg.nope_head_dim + cfg.v_head_dim),
+                            cfg, device=device),
+        "wo": dense_init(gen, H * cfg.v_head_dim, d, cfg,
+                         device=device).reshape(H, cfg.v_head_dim, d),
+    }
+
+
+def mla_apply(
+    p: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    q_pos: torch.Tensor,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+    kv_valid=None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """MLA with the *compressed* KV cache: the cache stores the rank-
+    ``kv_lora_rank`` latent c_kv plus the shared rotary key, written in
+    place at ``cache_pos``."""
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+
+    q = torch.einsum("btd,dr->btr", x, p["wq_a"])
+    q = vec_norm_apply(p["q_norm"], q, cfg.eps)
+    q = torch.einsum("btr,rhk->bthk", q, p["wq_b"])
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+
+    kv = torch.einsum("btd,dr->btr", x, p["wkv_a"])
+    c_kv, k_pe = kv[..., : cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
+    c_kv = vec_norm_apply(p["kv_norm"], c_kv, cfg.eps)
+
+    cos, sin = rope_table(q_pos, dr, cfg.rope_theta)
+    q_pe = rope_apply(q_pe, cos[None], sin[None])
+    k_pe = rope_apply(k_pe[:, :, None, :], cos[None], sin[None])[:, :, 0]
+
+    if cache is not None:
+        start = int(cache_pos) if cache_pos is not None else 0
+        _write(cache["ckv"], c_kv, start)
+        _write(cache["kpe"], k_pe, start)
+        c_kv, k_pe = cache["ckv"], cache["kpe"]
+        kv_pos = torch.arange(c_kv.shape[1], device=x.device)
+    else:
+        kv_pos = q_pos
+
+    kvb = torch.einsum("bsr,rhk->bshk", c_kv, p["wkv_b"])
+    k_nope, v = kvb[..., :dn], kvb[..., dn:]
+
+    # a 0-d host tensor: the reference's scalar, with no copy to the card
+    scale = 1.0 / torch.tensor(dn + dr, dtype=torch.float32).sqrt().to(
+        x.dtype)
+    scores = (torch.einsum("bthk,bshk->bhts", q_nope, k_nope)
+              + torch.einsum("bthk,bsk->bhts", q_pe, k_pe)) * scale
+    mask = make_mask(q_pos, kv_pos, causal=True, kv_valid=kv_valid)
+    scores = scores.float() + mask
+    pr = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhts,bshk->bthk", pr, v)
+    y = torch.einsum("bthd,hdD->btD", out, p["wo"])
+    return y, cache
+
+
+def empty_cache(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, *, device) -> Dict[str, torch.Tensor]:
+    """Per-layer KV cache buffers (MLA: compressed latent)."""
+    if cfg.mla:
+        return {
+            "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kpe": torch.zeros((batch, max_len, cfg.rope_head_dim),
+                               dtype=dtype, device=device),
+        }
+    return {
+        "k": torch.zeros((batch, max_len, cfg.n_kv, cfg.head_dim),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, cfg.n_kv, cfg.head_dim),
+                         dtype=dtype, device=device),
+    }

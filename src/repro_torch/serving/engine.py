@@ -3,7 +3,9 @@
 ``RelationalEngine`` compiles the Llama graph into relational pipelines
 (prefill, decode, batched decode) over chunked weight tables and runs them
 on the tensor executor; ``BatchedDecoder`` advances every active sequence
-of a continuous batch in ONE pipeline call per tick.
+of a continuous batch in ONE pipeline call per tick.  ``DirectEngine`` is
+the paper's dense baseline: the model stack of :mod:`repro_torch.models`
+on the same weights (through :mod:`repro_torch.core.bridge`).
 
 Metrics: TTFT (prompt → first token) and TPOT (mean per subsequent token),
 matching §4's definitions.  Host clocks around work that ends in a
@@ -39,6 +41,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import llama_graph as lg
 from repro_torch.core import relational as ra
@@ -889,3 +892,83 @@ class BatchedDecoder:
                           "live sequences / padded bucket size").set(
                               B / bucket)
         return next_toks
+
+
+class DirectEngine:
+    """Dense engine (the paper's baseline role): the model stack of
+    :mod:`repro_torch.models.transformer` run eagerly, the caches written in
+    place.
+
+    ``residency="paged"`` emulates llama.cpp-style synchronous dynamic
+    weight loading: the parameter tree sits in a
+    :class:`~repro_torch.serving.pager.WeightPager` cold store (pinned host
+    memory, or ``.npy`` files under ``disk_dir``) and every prefill and
+    decode step pulls the whole tree through the bounded working set, leaf
+    by leaf, without prefetch.  As in the reference, the pulled tree holds
+    every leaf until the step ends, so the card's peak is the whole tree
+    while ``pager.stats.peak_bytes`` stays within ``budget_bytes``.
+
+    ``device`` is where the weights, caches and every step live: the CUDA
+    card unless the caller passes ``"cpu"``.
+    """
+
+    def __init__(self, cfg, params, residency: str = "in_memory",
+                 budget_bytes: Optional[int] = None,
+                 disk_dir: Optional[str] = None, max_len: int = 1024,
+                 device="cuda"):
+        from repro_torch.models import transformer as tf
+        self.cfg = cfg
+        self.tf = tf
+        self.max_len = max_len
+        self.residency = residency
+        self.device = resolve_device(device)
+        if residency == "in_memory":
+            self.params = tf.tree_map(lambda l: torch.as_tensor(l).to(
+                self.device), params)
+            self.pager = None
+        else:
+            self.pager = WeightPager(budget_bytes or 1 << 62,
+                                     disk_dir=disk_dir, device=self.device)
+            self.pager.add_tree(params)
+            self._abstract = tf.tree_map(
+                lambda l: torch.as_tensor(l).to("meta"), params)
+
+    def _materialise(self):
+        """Paged mode: pull the whole tree through the bounded working set —
+        synchronous, per leaf in the reference's (sorted-key) order,
+        evicting as the budget demands."""
+        def fill(node, path):
+            if isinstance(node, dict):
+                return {k: fill(node[k], path + (k,)) for k in sorted(node)}
+            return self.pager.get("/".join(path))
+        return fill(self._abstract, ())
+
+    def generate(self, prompt: List[int], max_new_tokens: int
+                 ) -> GenerationResult:
+        tf, dev = self.tf, self.device
+        t0 = time.perf_counter()
+        params = self.params if self.pager is None else self._materialise()
+        toks = torch.tensor([prompt], dtype=torch.long, device=dev)
+        caches = tf.init_caches(self.cfg, 1, self.max_len,
+                                dtype=torch.float32, device=dev)
+        logits, caches, _ = tf.prefill(params, toks, self.cfg, caches)
+        tok = int(torch.argmax(logits[0, -1]))
+        tokens = [tok]
+        ttft = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        T = len(prompt)
+        for i in range(max_new_tokens - 1):
+            if self.pager is not None:
+                params = self._materialise()  # synchronous reload pressure
+            logits, caches = tf.decode_step(
+                params, torch.tensor([[tok]], dtype=torch.long, device=dev),
+                caches, T + i, self.cfg)
+            tok = int(torch.argmax(logits[0, -1]))
+            tokens.append(tok)
+        tpot = (time.perf_counter() - t1) / max(1, max_new_tokens - 1)
+        stats = dataclasses.asdict(self.pager.stats) if self.pager else None
+        peak = (self.pager.stats.peak_bytes if self.pager else
+                sum(lf.numel() * lf.element_size()
+                    for lf in tf.tree_leaves(self.params)))
+        return GenerationResult(tokens, ttft, tpot, peak, stats)

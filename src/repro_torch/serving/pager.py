@@ -163,6 +163,20 @@ class WeightPager:
             # the prefetch thread reads _cold under the lock
             self._cold[name] = cold
 
+    def add_tree(self, tree, prefix: str = "") -> None:
+        """Register every leaf of a nested dict of arrays or tensors under
+        ``prefix`` + its ``/``-joined key path.  Keys are walked sorted at
+        every level, as the reference's ``tree_flatten_with_path`` walks
+        them, so the cold store fills and a reader that fetches in the same
+        order evicts in the reference's order."""
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k in sorted(node):
+                    walk(node[k], path + (str(k),))
+            else:
+                self.add(prefix + "/".join(path), node)
+        walk(tree, ())
+
     def cold_tensor(self, name: str) -> torch.Tensor:
         """A cold entry as a host tensor (a memmap is read into one)."""
         cold = self._cold[name]

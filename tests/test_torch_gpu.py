@@ -780,3 +780,102 @@ def test_sharded_traced_step_on_the_card_gives_worker_spans(cuda):
     assert {e["pid"] for e in merged["traceEvents"]} == {1, 2, 3}
     for eng in (plain, traced):
         eng.shard_pool.shutdown()
+
+
+# -- the dense baseline: the model stack and DirectEngine ----------------------
+
+def _pinned(tree):
+    from repro_torch.models.transformer import tree_map
+    return tree_map(lambda t: t.pin_memory(), tree)
+
+
+@pytest.mark.parametrize("residency", ["in_memory", "paged"])
+def test_direct_engine_on_the_card_matches_the_cpu(cuda, residency):
+    """A tiny ``DirectEngine`` on the card gives the CPU engine's tokens, in
+    memory and paged from pinned host memory through a working set below
+    the tree (the pager's stats equal the CPU pager's)."""
+    from repro_torch.core.bridge import llama_params_to_tree, spec_to_config
+    from repro_torch.serving.engine import DirectEngine
+    spec = LlamaSpec(**dict(TINY, n_layers=2))
+    params = init_llama_params(spec, seed=3)
+    cfg = spec_to_config(spec)
+    kw = dict(max_len=32)
+    if residency == "paged":
+        kw.update(residency="paged", budget_bytes=48 * 1024)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        paged = residency == "paged"
+        tree = llama_params_to_tree(params, spec,
+                                    device="cpu" if paged else dev)
+        if paged and dev.type == "cuda":
+            tree = _pinned(tree)
+        res[dev.type] = DirectEngine(cfg, tree, device=dev, **kw).generate(
+            [5, 9, 2, 7], max_new_tokens=6)
+    assert res["cuda"].tokens == res["cpu"].tokens
+    assert res["cuda"].pager_stats == res["cpu"].pager_stats
+    if residency == "paged":
+        assert res["cuda"].pager_stats["evictions"] > 0
+
+
+def test_model_families_on_the_card_match_the_cpu(cuda):
+    """Every assigned family at its TINY size: ``forward``, then ``prefill``
+    and three ``decode_step``s on the card against the CPU, the same
+    weights carried across (f32 within 1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ASSIGNED
+    from repro_torch.models import transformer as tf
+    for arch in ASSIGNED + ["llama3-8b"]:
+        cfg = get_config(arch, tiny=True)
+        cpu_p = tf.init_params(cfg, 0, device="cpu")
+        gpu_p = tf.tree_map(lambda t: t.to(cuda), cpu_p)
+        gen = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (2, 10), generator=gen)
+        aux = None
+        if cfg.family in ("encdec", "vlm"):
+            n = cfg.n_frames if cfg.family == "encdec" else cfg.n_image_tokens
+            aux = torch.randn(2, n, cfg.d_model, generator=gen)
+        out = {}
+        for dev, p in ((cuda, gpu_p), (torch.device("cpu"), cpu_p)):
+            batch = {"tokens": toks.to(dev)}
+            if aux is not None:
+                batch["frames" if cfg.family == "encdec" else "images"] = \
+                    aux.to(dev)
+            logits = [tf.forward(p, batch, cfg)]
+            caches = tf.init_caches(cfg, 2, 10, dtype=torch.float32,
+                                    device=dev)
+            lg, caches, ac = tf.prefill(
+                p, batch["tokens"][:, :7], cfg, caches,
+                aux_input=None if aux is None else aux.to(dev))
+            logits.append(lg)
+            for i in range(3):
+                lg, caches = tf.decode_step(p, batch["tokens"][:, 7 + i:8 + i],
+                                            caches, 7 + i, cfg,
+                                            aux_caches=ac)
+                logits.append(lg)
+            out[dev.type] = [t.cpu() for t in logits]
+        for g, c in zip(out["cuda"], out["cpu"]):
+            torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"{arch}: {m}")
+
+
+def test_moe_dispatch_with_drops_on_the_card(cuda):
+    """The sort-based MoE dispatch where capacity drops (token, k) pairs
+    (the default factor 1.25, tokens sharing a component): the card's
+    outputs equal the CPU's within 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b", tiny=True),
+                              capacity_factor=1.25)
+    p = moe.moe_init(torch.Generator().manual_seed(4), cfg, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(cfg.d_model, generator=gen) + 0.3 * torch.randn(
+        4, 64, cfg.d_model, generator=gen)
+    N = x.shape[0] * x.shape[1]
+    _, idx = moe.top_k(torch.softmax(x.reshape(N, -1) @ p["router"], -1),
+                       cfg.top_k)
+    assert int(torch.bincount(idx.reshape(-1)).max()) > moe.capacity(N, cfg)
+    got = moe.moe_apply({k: v.to(cuda) for k, v in p.items()}, x.to(cuda),
+                        cfg)
+    torch.testing.assert_close(got.cpu(), moe.moe_apply(p, x, cfg),
+                               rtol=1e-4, atol=1e-4)

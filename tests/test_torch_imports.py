@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/`` (nor the GPU smoke
-script, nor the port's HTTP server example) imports JAX or anything of the
-JAX package ``repro``, and every module imports without a GPU, ``nvcc`` or
-``triton``."""
+script, nor the port's HTTP server and quickstart examples) imports JAX or
+anything of the JAX package ``repro``, and every module imports without a
+GPU, ``nvcc`` or ``triton``."""
 
 import ast
 import importlib
@@ -15,7 +15,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "examples" /
-                                      "serve_http_torch.py"]
+                                      "serve_http_torch.py",
+                                      ROOT / "examples" /
+                                      "quickstart_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
