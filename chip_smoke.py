@@ -32,7 +32,13 @@ the bridge: phase 5's requests and fixed prompt in memory (a decode step
 profiled), one request paged from pinned host memory through phase 7's
 budget, and every model family (the TINY configs, OLMoE-1B-7B and
 Mamba2-2.7B at their published widths cut to 2 layers) on the card against
-the CPU; it launches none of K1-K3.  Each serving run checks that every GEMM
+the CPU; it launches none of K1-K3.  Phase 11 trains: Llama-3.2-3B at full
+width and depth (bf16, remat, AdamW) through ``make_train_step`` for a
+warm-up and 8 timed steps (one profiled, the clip and the update timed
+apart), its width at depth 2 in f32 against the CPU (loss, gradients,
+remat, one step), and the recovery driver at depth 2 restarting from a
+checkpoint to the uninterrupted run's loss; it launches none of K1-K3
+either.  Each serving run checks that every GEMM
 went through K1 ``chunked_matmul`` (once a shard at a sharded site), every
 decode attention (and one-token suffix) through K2 ``paged_attention``
 and every prefill attention (cold, or a suffix over a cached prefix)
@@ -177,6 +183,16 @@ FIXED_PROMPT_SEED, FIXED_STEPS = 7, 4
 HTTP_PAGE, HTTP_POOL, HTTP_STREAMS, HTTP_NEW = 8, 12, 8, 12
 HTTP_SHARED, HTTP_HIT_TAILS, HTTP_DRIFT_EVERY = 64, (1, 5, 8), 8
 HTTP_TIMEOUT_S = 600
+# phase 11: the trainer.  Llama-3.2-3B (the paper's smaller case-study
+# model) at full width and depth with its config's defaults (bf16,
+# remat="full", ce_impl="gather") and AdamW's, on SyntheticLM batches of
+# 4 x 256 tokens: one warm-up step, then 8 timed.  Then its width at depth
+# 2: in f32 against the CPU (B = 1, T = 64), and the recovery driver (4
+# steps, a crash at step 3, checkpoints every 2 steps into build/)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 4, 8
+PARITY_T, PARITY_LR = 64, 1e-3
+RECOVERY_STEPS, RECOVERY_FAIL_AT, RECOVERY_EVERY = 4, 3, 2
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
 
 
 def log(msg: str = "") -> None:
@@ -2175,6 +2191,319 @@ def phase_direct(fixed, served5, tick5, h2d_rate: float) -> dict:
             "families_max_abs_diff": families}
 
 
+def _train_batch(data, i):
+    return {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+
+
+def _events_ms(fn, reps: int = 3) -> list:
+    """Device-synchronised walls of ``fn`` by CUDA events, one a run."""
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _grads(params, batch, cfg):
+    """(loss, gradient leaves in ``tree_leaves`` order) of ``loss_fn``."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.train_loop import loss_fn
+    live = [p.detach().requires_grad_(True) for p in tf.tree_leaves(params)]
+    with torch.enable_grad():
+        loss, _ = loss_fn(tf.tree_unflatten(params, live), batch, cfg)
+        return loss.detach(), list(torch.autograd.grad(loss, live))
+
+
+def _train_full(cfg) -> dict:
+    """(a) Llama-3.2-3B at full width and depth: 1 + TRAIN_STEPS steps
+    through ``make_train_step``, each synchronised by its loss's copy to
+    the host; one step profiled; the clip and the update timed apart."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import AdamW, clip_by_global_norm
+    from repro_torch.training.train_loop import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device="cuda")
+    opt = AdamW()
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tf.tree_leaves(params))
+    n_layers = sum(t.numel() for t in tf.tree_leaves(params["g0"]))
+    log(f"(a) {cfg.name}: {n / 1e9:.3f} B parameters ({n_layers / 1e9:.3f} "
+        f"B in the {cfg.n_layers} layers), {cfg.param_dtype} params, "
+        f"{opt.state_dtype} moments, remat={cfg.remat!r}, "
+        f"ce_impl={cfg.ce_impl!r}; drawn and AdamW state made in "
+        f"{time.perf_counter() - t0:.1f} s, memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH)
+    losses, gnorms, walls = [], [], []
+    for i in range(1 + TRAIN_STEPS):
+        batch = _train_batch(data, i)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))  # the step's synchronise
+        walls.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        log(f"  step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{losses[-1]:.4f}, grad_norm {gnorms[-1]:.4f}, lr "
+            f"{float(m['lr']):.3e}, wall {walls[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    # random weights: the final norm's rows have unit RMS and lm_head's
+    # columns a 1/d variance, so the logits are ~N(0, 1) and the first
+    # loss E[logsumexp] - E[gold] is ln(vocab) + 1/2
+    first_want = math.log(cfg.vocab) + 0.5
+    assert abs(losses[0] - first_want) <= 0.1, (losses[0], first_want)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall = statistics.median(walls[1:])
+    model_flops = 6 * n * tokens
+    recompute_flops = 2 * n_layers * tokens
+    peak_rate = TENSOR_PEAKS[torch.bfloat16]
+    out = {"n_params": n, "losses": losses, "grad_norms": gnorms,
+           "step_walls_ms": walls[1:], "step_wall_ms": wall,
+           "tokens_per_s": tokens / wall * 1e3,
+           "model_tflop": model_flops / 1e12,
+           "recompute_tflop": recompute_flops / 1e12,
+           "mfu": model_flops / (wall / 1e3) / peak_rate,
+           "hfu_with_recompute": (model_flops + recompute_flops)
+           / (wall / 1e3) / peak_rate,
+           "max_memory_allocated": peak}
+    log(f"(a) {TRAIN_STEPS} timed steps of {tokens} tokens: median wall "
+        f"{wall:.1f} ms (min {min(walls[1:]):.1f}, max {max(walls[1:]):.1f})"
+        f", {out['tokens_per_s']:.0f} tokens/s; 6·N·tokens = "
+        f"{out['model_tflop']:.2f} TFLOP a step, {out['mfu']:.4f} of the "
+        f"{peak_rate / 1e12:.0f} TFLOP/s bf16 peak (with remat's "
+        f"{out['recompute_tflop']:.2f} TFLOP recompute: "
+        f"{out['hfu_with_recompute']:.4f}); first loss {losses[0]:.4f} "
+        f"against ln(vocab) + 1/2 = {first_want:.4f}; max memory "
+        f"allocated {peak / 1e9:.2f} GB")
+
+    def one_step():
+        nonlocal params, state
+        params, state, m = step(params, state, _train_batch(data, 0))
+        float(m["loss"])
+    out["profile"] = _profile_steps(one_step, "train step")
+
+    # the step's parts, timed apart on its shapes: the gradient (forward,
+    # recompute, backward), the clip and the AdamW update
+    batch = _train_batch(data, 0)
+    grad_ms = _events_ms(lambda: _grads(params, batch, cfg), reps=2)
+    _, leaves = _grads(params, batch, cfg)
+    grads = tf.tree_unflatten(params, leaves)
+    clip_ms = _events_ms(lambda: clip_by_global_norm(grads, 1.0))
+    update_ms = _events_ms(lambda: opt.update(grads, state, params))
+    out.update(grad_ms=statistics.median(grad_ms),
+               clip_ms=statistics.median(clip_ms),
+               update_ms=statistics.median(update_ms))
+    out["update_share"] = out["update_ms"] / wall
+    out["clip_share"] = out["clip_ms"] / wall
+    log(f"(a) the step's parts by CUDA events: gradient (forward, remat "
+        f"recompute, backward) {out['grad_ms']:.1f} ms, clip "
+        f"{out['clip_ms']:.1f} ms ({out['clip_share']:.3f} of the step), "
+        f"AdamW update {out['update_ms']:.1f} ms ({out['update_share']:.3f} "
+        f"of the step); runs {grad_ms}, {clip_ms}, {update_ms}")
+    return out
+
+
+def _train_parity(cfg3b) -> dict:
+    """(b) Llama-3.2-3B's width at depth 2 in f32, B = 1, T = PARITY_T:
+    the card against the port on the CPU, from the same weights (drawn on
+    the CPU).  Loss within 1e-5, each gradient leaf within 1e-4 of that
+    leaf's largest |gradient|, remat="full" equal to remat="none" on the
+    card within 1e-6, and one train step's params within 1e-5 outside
+    Adam's ±lr sign flips."""
+    import dataclasses
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import make_train_step
+    base = dataclasses.replace(cfg3b, n_layers=2, dtype="float32",
+                               param_dtype="float32")
+    cfgs = {r: dataclasses.replace(base, remat=r) for r in ("none", "full")}
+    t0 = time.perf_counter()
+    cpu_p = tf.init_params(base, 0, device="cpu")
+    gpu_p = tf.tree_map(lambda t: t.cuda(), cpu_p)
+    data = SyntheticLM(vocab=base.vocab, seq_len=PARITY_T, global_batch=1)
+    host = {k: torch.from_numpy(v) for k, v in data.batch_at(0).items()}
+    dev = {k: v.cuda() for k, v in host.items()}
+    card = {r: _grads(gpu_p, dev, cfgs[r]) for r in cfgs}
+    cpu_loss, cpu_grads = _grads(cpu_p, host, cfgs["none"])
+    loss_diff = abs(float(card["none"][0]) - float(cpu_loss))
+    grad_rel = max(float((g.cpu() - c).abs().max())
+                   / max(float(c.abs().max()), 1e-30)
+                   for g, c in zip(card["none"][1], cpu_grads))
+    remat_diff = max(float((a - b).abs().max()) for a, b in zip(
+        [card["none"][0]] + card["none"][1],
+        [card["full"][0]] + card["full"][1]))
+    assert loss_diff <= 1e-5, loss_diff
+    assert grad_rel <= 1e-4, grad_rel
+    assert remat_diff <= 1e-6, remat_diff
+    del card, cpu_grads
+    opt = AdamW(lr=PARITY_LR, warmup_steps=1)
+    step = make_train_step(cfgs["full"], opt)
+    ms = {}
+    for name, p, b in (("cuda", gpu_p, dev), ("cpu", cpu_p, host)):
+        _, _, ms[name] = step(p, opt.init(p), b)
+    flips, worst = 0, 0.0
+    for g, c in zip(tf.tree_leaves(gpu_p), tf.tree_leaves(cpu_p)):
+        diff = (g.cpu() - c).abs()
+        flips += int((diff > 1e-5).sum())
+        worst = max(worst, float(diff.max()))
+        assert float((diff > 1e-5).float().mean()) <= 1e-3
+    assert worst <= 2 * PARITY_LR * (1 + 1e-4) + 1e-5, worst
+    step_diff = {k: abs(float(ms["cuda"][k]) - float(ms["cpu"][k]))
+                 for k in ("loss", "grad_norm", "lr")}
+    assert step_diff["loss"] <= 1e-5, step_diff
+    assert step_diff["lr"] <= 1e-6 * PARITY_LR, step_diff
+    n = sum(t.numel() for t in tf.tree_leaves(cpu_p))
+    out = {"n_params": n, "loss_abs_diff": loss_diff,
+           "grad_max_rel_diff": grad_rel, "remat_max_abs_diff": remat_diff,
+           "step_metric_abs_diff": step_diff, "step_sign_flips": flips,
+           "step_max_abs_param_diff": worst}
+    log(f"(b) width {base.d_model}, 2 layers, f32 ({n / 1e9:.3f} B "
+        f"parameters), B=1, T={PARITY_T}, card against CPU: |Δloss| "
+        f"{loss_diff:.3e} (≤ 1e-5), gradients' max |Δ| / leaf max "
+        f"{grad_rel:.3e} (≤ 1e-4), remat full vs none on the card max |Δ| "
+        f"{remat_diff:.3e} (≤ 1e-6); one train step (lr {PARITY_LR}): "
+        f"|Δloss| {step_diff['loss']:.3e}, |Δgrad_norm| "
+        f"{step_diff['grad_norm']:.3e}, params beyond 1e-5: {flips} of {n}, "
+        f"max |Δ| {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+@contextlib.contextmanager
+def _timed_checkpoints(times: dict):
+    """Record the seconds of the checkpoint module's calls as the recovery
+    driver makes them: the host copy in ``AsyncCheckpointer.save`` (after
+    its wait), the writer thread's ``save``, each ``wait`` and each
+    ``restore``."""
+    from repro_torch.training import checkpoint as ck
+    saved = (ck.save, ck.restore, ck.AsyncCheckpointer.save,
+             ck.AsyncCheckpointer.wait)
+
+    def timing(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times.setdefault(name, []).append(time.perf_counter() - t0)
+        return run
+
+    def host_copy(self, *a, **k):
+        self.wait()
+        return timing("host_copy", saved[2])(self, *a, **k)
+    ck.save = timing("write", saved[0])
+    ck.restore = timing("restore", saved[1])
+    ck.AsyncCheckpointer.save = host_copy
+    ck.AsyncCheckpointer.wait = timing("wait", saved[3])
+    try:
+        yield
+    finally:
+        (ck.save, ck.restore, ck.AsyncCheckpointer.save,
+         ck.AsyncCheckpointer.wait) = saved
+
+
+def _train_recovery(cfg3b) -> dict:
+    """(c) The recovery driver at Llama-3.2-3B's width, 2 layers, the
+    config's defaults (bf16, remat): RECOVERY_STEPS steps uninterrupted,
+    then again with a crash at step RECOVERY_FAIL_AT, checkpoints every
+    RECOVERY_EVERY steps (keep 1) under build/; the final losses equal
+    (abs 1e-6, the reference's bar)."""
+    import dataclasses
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.fault_tolerance import (FaultConfig,
+                                                      run_with_recovery)
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import make_train_step
+    cfg = dataclasses.replace(cfg3b, n_layers=2)
+    opt = AdamW()
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH)
+
+    def init_state():
+        p = tf.init_params(cfg, 0, device="cuda")
+        return p, opt.init(p)
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    free = shutil.disk_usage(ROOT).free
+    runs, times, ckpt_bytes = {}, {}, 0
+    try:
+        for name, fail_at in (("uninterrupted", None),
+                              ("restarted", {RECOVERY_FAIL_AT: 0})):
+            d = TRAIN_CKPT_DIR / name
+            t0 = time.perf_counter()
+            with _timed_checkpoints(times.setdefault(name, {})):
+                runs[name] = run_with_recovery(
+                    step, init_state, lambda i: _train_batch(data, i),
+                    total_steps=RECOVERY_STEPS,
+                    fault_cfg=FaultConfig(ckpt_dir=str(d),
+                                          ckpt_every=RECOVERY_EVERY, keep=1),
+                    fail_at=fail_at)
+            times[name]["run"] = time.perf_counter() - t0
+            last = d / f"step_{RECOVERY_STEPS:08d}"
+            ckpt_bytes = sum(f.stat().st_size for f in last.iterdir())
+            shutil.rmtree(d)
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ref, rec = runs["uninterrupted"], runs["restarted"]
+    assert (ref.restarts, rec.restarts) == (0, 1)
+    assert ref.steps_run == rec.steps_run == RECOVERY_STEPS
+    assert all(math.isfinite(x) for x in ref.losses + rec.losses)
+    assert abs(rec.losses[-1] - ref.losses[-1]) <= 1e-6, (ref.losses,
+                                                           rec.losses)
+    out = {"losses": {k: r.losses for k, r in runs.items()},
+           "checkpoint_bytes": ckpt_bytes, "disk_free_bytes": free,
+           "seconds": times}
+    log(f"(c) recovery at width {cfg.d_model}, 2 layers, {cfg.param_dtype}: "
+        f"uninterrupted losses {ref.losses}, restarted {rec.losses} "
+        f"(final equal, abs 1e-6); a checkpoint {ckpt_bytes / 1e9:.2f} GB "
+        f"(disk free {free / 1e9:.0f} GB)")
+    for name, t in times.items():
+        log(f"  {name}: " + ", ".join(
+            f"{k} {[round(x, 2) for x in v] if k != 'run' else round(v, 1)} s"
+            for k, v in t.items()))
+    return out
+
+
+def phase_train() -> dict:
+    """The trainer on the card: (a) Llama-3.2-3B at full width and depth,
+    (b) its width at depth 2 in f32 against the CPU, (c) the recovery
+    driver at depth 2.  The training path launches none of K1-K3."""
+    from repro_torch import kernels
+    from repro_torch.configs.llama3_2_3b import CONFIG
+    log(f"== phase 11: the trainer, {CONFIG.name} at full width and "
+        f"{CONFIG.n_layers} layers, on the card (memory allocated at the "
+        f"start {torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    wrappers = [getattr(kernels, name) for name in KERNELS]
+    for fn in wrappers:
+        fn.launches = fn.calls = 0
+    out = {"full": _train_full(CONFIG)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = _train_parity(CONFIG)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["recovery"] = _train_recovery(CONFIG)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+    assert not any(launched.values()), launched
+    log(f"K1-K3 launches in phase 11: {launched} (the training path runs "
+        f"none)")
+    return out
+
+
 def _compile_logged(eng, label, compile_fn, *args):
     """Compile one plan through the engine's cache and print its compile
     time and decisions."""
@@ -2463,6 +2792,7 @@ def main() -> int:
     http, http_summary = timed("phase 9", phase_http_serving, fixed, served5)
     direct_summary = timed("phase 10", phase_direct, fixed, served5, tick5,
                            paged_summary["h2d_bytes_per_s"])
+    train_summary = timed("phase 11", phase_train)
     # each main path's counts, zeroed just before it and read just after:
     # phase 5's cold serving, phase 6's prefix-cached serving per bind mode,
     # phase 7's paged serving, phase 8's sharded serving and phase 9's HTTP
@@ -2602,6 +2932,7 @@ def main() -> int:
     log(f"phase 7 (paged): {json.dumps(paged_summary)}")
     log(f"phase 9 (HTTP): {json.dumps(http_summary)}")
     log(f"phase 10 (direct): {json.dumps(direct_summary)}")
+    log(f"phase 11 (train): {json.dumps(train_summary)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

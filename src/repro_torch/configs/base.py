@@ -1,9 +1,9 @@
 """Model configuration schema covering all assigned architecture families.
 
 A copy of the reference's schema.  The execution fields ``scan_unroll``,
-``remat``, ``ce_impl`` and ``moe_impl`` keep the reference's values; the
-port's inference path ignores the first three (they change neither the
-forward pass nor the serving path) and ``moe_impl="ep_local"`` falls back
+``remat``, ``ce_impl`` and ``moe_impl`` keep the reference's values: the
+port ignores ``scan_unroll``, honours ``remat`` and ``ce_impl`` in
+training (inference ignores them), and ``moe_impl="ep_local"`` falls back
 to ``moe_apply`` without a device mesh, as the reference does.
 """
 

@@ -11,7 +11,10 @@ along as a per-layer array instead of splitting the group.
 
 Caches are written in place (the reference donates them to ``jit``):
 ``prefill`` and ``decode_step`` return the cache tree they were given.
-``remat`` and ``scan_unroll`` change nothing at inference and are ignored.
+Where a gradient is being taken, ``cfg.remat == "full"`` runs each layer
+under ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes
+the layer from its input, as the reference's ``jax.checkpoint`` does.
+Inference ignores ``remat``; ``scan_unroll`` changes nothing.
 
 API:
     init_params(cfg, seed_or_generator, device)    concrete params
@@ -29,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.chunked import resolve_device
@@ -54,23 +58,40 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def tree_leaves(tree):
-    """The leaves of nested dicts, depth first."""
+    """The leaves of nested dicts, depth first in sorted-key order (JAX's
+    ``tree_leaves`` order: a sum over the leaves, or a checkpoint's key
+    order, follows the reference's)."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
     else:
         yield tree
+
+
+def tree_unflatten(like, leaves):
+    """Nested dicts of ``like``'s structure holding ``leaves``, given in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
 
 
 def _stack(trees: List[Dict]) -> Dict:
     return tree_map(lambda *ls: torch.stack(ls), *trees)
 
 
-def _index(tree, i: int):
-    """Layer ``i`` of a stacked tree, as views (None stays None)."""
+def _unbind(tree, n: int) -> List:
+    """The ``n`` layers of a stacked tree, as views (None gives None a
+    layer).  One ``unbind`` a leaf: its backward is one ``stack``, where
+    indexing each layer would add a full-size zero gradient a layer."""
     if tree is None:
-        return None
-    return tree_map(lambda a: a[i], tree)
+        return [None] * n
+    layers = tree_map(lambda a: torch.unbind(a, 0), tree)
+    return [tree_map(lambda ls: ls[i], layers) for i in range(n)]
 
 
 def tree_from_numpy(tree, device="cuda"):
@@ -309,13 +330,11 @@ def vlm_group_apply(p, x, cfg, *, q_pos, cache=None, cache_pos=None,
     The self layers' caches (``cache["self"]``, stacked) are written in
     place."""
     inner = cfg.cross_attn_every - 1
-    for i in range(inner):
-        x, _, _ = block_apply("dense", _index(p["self"], i), x, cfg,
-                              q_pos=q_pos,
-                              cache=None if cache is None else _index(
-                                  cache["self"], i),
-                              cache_pos=cache_pos, kv_valid=kv_valid,
-                              rope_cs=rope_cs)
+    caches = _unbind(None if cache is None else cache["self"], inner)
+    for p_i, cache_i in zip(_unbind(p["self"], inner), caches):
+        x, _, _ = block_apply("dense", p_i, x, cfg, q_pos=q_pos,
+                              cache=cache_i, cache_pos=cache_pos,
+                              kv_valid=kv_valid, rope_cs=rope_cs)
     h = norm_apply(p["ln_c1"], x, cfg)
     c, new_aux = _cross_from_cache(p["cross"], h, cfg, q_pos, aux, aux_cache)
     x = x + c
@@ -397,12 +416,20 @@ def _scan_group(g: Group, gp, x, cfg, apply_one, caches=None, extras=None):
     """Run a stacked group layer by layer.  ``apply_one(p_layer, x,
     cache_layer, extra_layer) -> (x, new_cache_layer, aux_layer)``: the new
     cache goes back into ``caches`` in place; the aux outputs (cross K/V),
-    if any, come back stacked.  Returns (x, caches, stacked aux or None)."""
+    if any, come back stacked.  Returns (x, caches, stacked aux or None).
+    Under ``cfg.remat == "full"``, where a gradient is being taken, each
+    layer is checkpointed: its backward recomputes it."""
+    n = g.n_layers
+    body = apply_one
+    if (cfg.remat == "full" and torch.is_grad_enabled()
+            and (x.requires_grad
+                 or any(t.requires_grad for t in tree_leaves(gp)))):
+        def body(*args):
+            return checkpoint(apply_one, *args, use_reentrant=False)
     auxes = []
-    for i in range(g.n_layers):
-        cache_l = _index(caches, i)
-        x, new_c, aux_l = apply_one(_index(gp, i), x, cache_l,
-                                    _index(extras, i))
+    for p_l, cache_l, extra_l in zip(_unbind(gp, n), _unbind(caches, n),
+                                     _unbind(extras, n)):
+        x, new_c, aux_l = body(p_l, x, cache_l, extra_l)
         if caches is not None:
             _write_back(cache_l, new_c)
         auxes.append(aux_l)

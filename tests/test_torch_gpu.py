@@ -879,3 +879,113 @@ def test_moe_dispatch_with_drops_on_the_card(cuda):
                         cfg)
     torch.testing.assert_close(got.cpu(), moe.moe_apply(p, x, cfg),
                                rtol=1e-4, atol=1e-4)
+
+
+# -- training: the train step, remat and the recovery driver -------------------
+
+def _assert_step_params(got, want, lr, tol=1e-5):
+    """One AdamW step's params: within ``tol`` except for sign flips of
+    near-zero gradients (at most 0.1 % of a leaf, each within 2·lr)."""
+    diff = (got.float() - want.float()).abs()
+    assert float((diff > tol).float().mean()) <= 1e-3, float(diff.max())
+    assert float(diff.max()) <= 2 * lr * (1 + 1e-4) + tol
+
+
+def _train_batch(cfg, dev, step=0, seq=16, batch=4):
+    from repro_torch.data.pipeline import SyntheticLM
+    b = {k: torch.from_numpy(v) for k, v in SyntheticLM(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch).batch_at(
+        step).items()}
+    gen = torch.Generator().manual_seed(step)
+    if cfg.family == "encdec":
+        b["frames"] = torch.randn(batch, cfg.n_frames, cfg.d_model,
+                                  generator=gen)
+    if cfg.family == "vlm":
+        b["images"] = torch.randn(batch, cfg.n_image_tokens, cfg.d_model,
+                                  generator=gen)
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "granite-34b", "olmo-1b",
+                                  "phi4-mini-3.8b", "hymba-1.5b",
+                                  "olmoe-1b-7b", "deepseek-v3-671b",
+                                  "mamba2-2.7b", "whisper-small",
+                                  "llama-3.2-vision-90b", "llama3-8b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Two train steps of every family's TINY config (f32) on the card
+    against the CPU from the same weights: loss, grad_norm and lr within
+    1e-5, params within 1e-5 outside Adam's sign flips."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import make_train_step
+    cfg = get_config(arch, tiny=True)
+    lr = 1e-3
+    opt = AdamW(lr=lr, warmup_steps=1, total_steps=40)
+    step = make_train_step(cfg, opt)
+    cpu_p = tf.init_params(cfg, 0, device="cpu")
+    gpu_p = tf.tree_map(lambda t: t.to(cuda), cpu_p)
+    states = {"cpu": opt.init(cpu_p), "cuda": opt.init(gpu_p)}
+    for i in range(2):
+        ms = {}
+        for dev, p in (("cuda", gpu_p), ("cpu", cpu_p)):
+            _, states[dev], ms[dev] = step(p, states[dev],
+                                           _train_batch(cfg, dev, i))
+        for k in ("loss", "grad_norm", "lr"):
+            assert float(ms["cuda"][k]) == pytest.approx(
+                float(ms["cpu"][k]), rel=1e-5, abs=1e-6), (arch, k, i)
+        for g, c in zip(tf.tree_leaves(gpu_p), tf.tree_leaves(cpu_p)):
+            _assert_step_params(g.cpu(), c, lr)
+
+
+def test_remat_on_the_card_matches_no_remat(cuda):
+    """Llama-3's TINY config at bf16 and f32: ``remat="full"`` gives the
+    loss and gradients of ``remat="none"`` within 1e-6 on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.train_loop import loss_fn
+    for dtype in ("float32", "bfloat16"):
+        base = dataclasses.replace(get_config("llama3-8b", tiny=True),
+                                   dtype=dtype, param_dtype=dtype)
+        params = tf.init_params(base, 0, device=cuda)
+        batch = _train_batch(base, cuda)
+        out = {}
+        for remat in ("none", "full"):
+            live = [p.detach().requires_grad_(True)
+                    for p in tf.tree_leaves(params)]
+            loss, _ = loss_fn(tf.tree_unflatten(params, live), batch,
+                              dataclasses.replace(base, remat=remat))
+            out[remat] = [loss] + list(torch.autograd.grad(loss, live))
+        for a, b in zip(out["none"], out["full"]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_restart_on_the_card_reproduces_uninterrupted_run(cuda, tmp_path):
+    """The recovery driver on the card (Llama-3's TINY config): a crash at
+    step 9 after the step-8 checkpoint, then a resume, ends on the
+    uninterrupted run's loss (abs 1e-6, the reference's bar)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.fault_tolerance import (FaultConfig,
+                                                      run_with_recovery)
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import make_train_step
+    cfg = get_config("llama3-8b", tiny=True)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=40)
+    step = make_train_step(cfg, opt)
+
+    def init_state():
+        p = tf.init_params(cfg, 0, device=cuda)
+        return p, opt.init(p)
+
+    def batch_at(i):
+        return _train_batch(cfg, cuda, i)
+    runs = [run_with_recovery(step, init_state, batch_at, total_steps=12,
+                              fault_cfg=FaultConfig(
+                                  ckpt_dir=str(tmp_path / name),
+                                  ckpt_every=4), fail_at=fail_at)
+            for name, fail_at in (("ref", None), ("ft", {9: 0}))]
+    assert [r.restarts for r in runs] == [0, 1]
+    assert runs[0].steps_run == runs[1].steps_run == 12
+    assert runs[1].losses[-1] == pytest.approx(runs[0].losses[-1], abs=1e-6)

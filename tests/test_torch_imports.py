@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/`` (nor the GPU smoke
-script, nor the port's HTTP server and quickstart examples) imports JAX or
-anything of the JAX package ``repro``, and every module imports without a
-GPU, ``nvcc`` or ``triton``."""
+script, nor the port's HTTP server, quickstart and training examples)
+imports JAX or anything of the JAX package ``repro``, and every module
+imports without a GPU, ``nvcc`` or ``triton``."""
 
 import ast
 import importlib
@@ -17,7 +17,9 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "examples" /
                                       "serve_http_torch.py",
                                       ROOT / "examples" /
-                                      "quickstart_torch.py"]
+                                      "quickstart_torch.py",
+                                      ROOT / "examples" /
+                                      "train_minilm_torch.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -352,9 +352,16 @@ def test_watchdog_checks_served_ticks(jax_engine):
         results = _stream_all(srv, [{"prompt": p, "max_tokens": 6}
                                     for p in prompts])
         drift = _get(srv, "/debug/drift").json()
+    # a stream ends inside its last tick, before that tick's watchdog
+    # check, and a re-plan bumps the engine's count before the
+    # watchdog's: the live read above can fall between them, so the
+    # counts it serves are compared once the server (and its scheduler
+    # thread) stopped, on the dict the endpoint serialises
+    final = srv.watchdog.to_dict()
     assert drift["ticks"] > 0 and drift["checks"] > 0
     assert drift["last_report"]["steps"]
-    assert drift["engine_replans"] == eng.replans == drift["replans"]
+    assert drift["replans"] <= final["replans"]
+    assert final["engine_replans"] == eng.replans == final["replans"]
     for p, res in zip(prompts, results):
         assert res.tokens == jax_engine.generate(p, max_new_tokens=6).tokens
 
