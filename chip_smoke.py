@@ -38,7 +38,12 @@ warm-up and 8 timed steps (one profiled, the clip and the update timed
 apart), its width at depth 2 in f32 against the CPU (loss, gradients,
 remat, one step), and the recovery driver at depth 2 restarting from a
 checkpoint to the uninterrupted run's loss; it launches none of K1-K3
-either.  Each serving run checks that every GEMM
+either.  Phase 12 runs the distributed path at world size 1 over NCCL:
+phase 11's steps on DTensor leaves placed by ``param_pspecs`` on a (1, 1)
+mesh (the first loss equal to phase 11's), the int8 error-feedback
+all-reduce, the hierarchical psum, a one-stage pipeline against the dense
+loop, and the elastic reshard of the params onto a (1, 1, 1) mesh; it
+launches none of K1-K3.  Each serving run checks that every GEMM
 went through K1 ``chunked_matmul`` (once a shard at a sharded site), every
 decode attention (and one-token suffix) through K2 ``paged_attention``
 and every prefill attention (cold, or a suffix over a cached prefix)
@@ -193,6 +198,19 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 4, 8
 PARITY_T, PARITY_LR = 64, 1e-3
 RECOVERY_STEPS, RECOVERY_FAIL_AT, RECOVERY_EVERY = 4, 3, 2
 TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+# phase 12: the distributed path at world size 1 (one card; NCCL refuses
+# two ranks on one GPU): phase 11's model, seed and batches on a (1, 1)
+# ("data", "model") mesh under single_pod_rules(fsdp=True), 3 warm-up and
+# 5 timed steps; the collectives (an int8 error-feedback all-reduce of a
+# [4096, 4096] f32 gradient, the hierarchical psum, a one-stage pipeline
+# of 8 [1024, 1024] blocks over 64 rows); the elastic reshard of the
+# params onto a (1, 1, 1) ("pod", "data", "model") mesh.  The rendezvous
+# is a FileStore under build/.
+DIST_WARMUP, DIST_STEPS = 3, 5
+DIST_STORE = ROOT / "build" / "dist_store"
+DIST_CKPT_DIR = ROOT / "build" / "dist_ckpt"
+EF_SHAPE, EF_STD = (4096, 4096), 0.05
+PIPE_L, PIPE_D, PIPE_B, PIPE_MICRO = 8, 1024, 64, 4
 
 
 def log(msg: str = "") -> None:
@@ -2504,6 +2522,310 @@ def phase_train() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _world_of_one():
+    """A one-rank NCCL process group whose rendezvous is a FileStore under
+    build/ (no network); destroyed on exit."""
+    import torch.distributed as dist
+    DIST_STORE.parent.mkdir(parents=True, exist_ok=True)
+    DIST_STORE.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(DIST_STORE), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        DIST_STORE.unlink(missing_ok=True)
+
+
+def _dist_train(cfg, first_loss: float, train11: dict):
+    """(a) ``make_train_step`` on DTensor trees placed by ``param_pspecs``
+    on a (1, 1) mesh under single_pod_rules(fsdp=True); the first loss
+    equal to phase 11's (1e-6); one step profiled beside phase 11's.
+    Returns (summary, params)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import (
+        distribute_tree, placements, sharding_rules, single_pod_rules)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import (batch_pspec,
+                                                 make_train_step,
+                                                 param_pspecs)
+    mesh = make_test_mesh(1, 1)
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW()
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH)
+    losses, walls = [], []
+    with sharding_rules(mesh, single_pod_rules(fsdp=True)):
+        params = tf.init_params(cfg, 0, device="cuda")
+        specs = param_pspecs(params, mesh)
+        params = distribute_tree(params, specs, mesh)
+        state = opt.init(params)
+        for tree in (params, state.m, state.v):
+            for t, s in zip(tf.tree_leaves(tree), tf.tree_leaves(specs)):
+                assert isinstance(t, DTensor), type(t)
+                assert tuple(t.placements) == placements(s, mesh), (
+                    t.placements, s)
+        bpl = placements(batch_pspec(), mesh)
+
+        def batch_at(i):
+            return {k: distribute_tensor(torch.from_numpy(v).to("cuda"),
+                                         mesh, bpl)
+                    for k, v in data.batch_at(i).items()}
+        for i in range(DIST_WARMUP + DIST_STEPS):
+            batch = batch_at(i)
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(m["loss"].full_tensor().item())  # the synchronise
+            walls.append((time.perf_counter() - t0) * 1e3)
+            log(f"  step {i}{' (warm-up)' if i < DIST_WARMUP else ''}: loss "
+                f"{losses[-1]:.6f}, wall {walls[-1]:.1f} ms")
+        peak = torch.cuda.max_memory_allocated()
+
+        def one_step():
+            nonlocal params, state
+            params, state, m = step(params, state, batch_at(0))
+            m["loss"].full_tensor().item()
+        profile = _profile_steps(one_step, "sharded train step")
+    diff = abs(losses[0] - first_loss)
+    log(f"(a) first loss {losses[0]!r} against phase 11's {first_loss!r}: "
+        f"|diff| {diff!r}")
+    assert diff <= 1e-6, (losses[0], first_loss)
+    assert all(math.isfinite(x) for x in losses), losses
+    wall = statistics.median(walls[DIST_WARMUP:])
+    wall11 = train11["step_wall_ms"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"losses": losses, "step_walls_ms": walls[DIST_WARMUP:],
+           "step_wall_ms": wall, "tokens_per_s": tokens / wall * 1e3,
+           "wall_over_phase11": wall / wall11,
+           "first_loss_diff": diff, "max_memory_allocated": peak,
+           "profile": profile}
+    log(f"(a) {DIST_STEPS} timed steps on DTensor leaves: median wall "
+        f"{wall:.1f} ms (min {min(walls[DIST_WARMUP:]):.1f}, max "
+        f"{max(walls[DIST_WARMUP:]):.1f}), {out['tokens_per_s']:.0f} "
+        f"tokens/s, {out['wall_over_phase11']:.3f} x phase 11's median "
+        f"{wall11:.1f} ms; max memory allocated {peak / 1e9:.2f} GB")
+    busy, busy11 = profile["busy_ms"], train11["profile"]["busy_ms"]
+    if busy is not None and busy11 is not None:
+        out["busy_over_phase11"] = busy / busy11
+        log(f"(a) one profiled step: device busy {busy:.1f} ms, idle share "
+            f"{profile['idle_share']:.3f}, against phase 11's busy "
+            f"{busy11:.1f} ms, idle share "
+            f"{train11['profile']['idle_share']:.3f} "
+            f"({busy / busy11:.3f} x its busy time)")
+    del state
+    return out, params
+
+
+def _dist_collectives() -> dict:
+    """(b) The collectives at world size 1: the int8 error-feedback
+    all-reduce (mean within half a quantisation step of g, a nonzero
+    residual), the hierarchical psum (equal to its input) and a one-stage
+    pipeline (the dense loop's output and gradients, each within 1e-5 of
+    its largest magnitude)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.collectives import (
+        ef_int8_allreduce, hierarchical_psum, init_error_state)
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_test_mesh
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    mesh2 = make_test_mesh(1, 1)
+    mesh3 = make_test_mesh(1, 1, pods=1)
+    g = torch.randn(EF_SHAPE, generator=gen, device="cuda") * EF_STD
+    t0 = time.perf_counter()
+    mean_g, err = ef_int8_allreduce(
+        g, init_error_state({"g": g})["g"], mesh2, ("data",))
+    torch.cuda.synchronize()
+    ef_s = time.perf_counter() - t0
+    half_step = (g.abs().max() / 127.0 / 2).item()
+    ef_err = (mean_g - g).abs().max().item()
+    residual = err.abs().max().item()
+    # f32 division rounds |g / scale| <= 127 to within ~1.5e-5 of a step
+    assert ef_err <= half_step * (1 + 1e-4) and ef_err < 2e-3, (
+        ef_err, half_step)
+    assert residual > 0
+    h = hierarchical_psum(g, mesh3, "pod", "data")
+    assert torch.equal(h, g)
+
+    pmesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+    w = torch.randn((PIPE_L, PIPE_D, PIPE_D), generator=gen,
+                    device="cuda") * PIPE_D ** -0.5
+    x = torch.randn((PIPE_B, PIPE_D), generator=gen, device="cuda")
+    cot = torch.randn((PIPE_B, PIPE_D), generator=gen, device="cuda")
+
+    def block_fn(p, x):
+        return torch.tanh(x @ p["w"])
+    wp, xp = w.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    piped = pipeline_apply(block_fn, {"w": wp}, xp, pmesh, stage_axis="pod",
+                           n_micro=PIPE_MICRO)
+    (piped * cot).sum().backward()
+    wd, xd = w.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    dense = xd
+    for i in range(PIPE_L):
+        dense = block_fn({"w": wd[i]}, dense)
+    (dense * cot).sum().backward()
+    # cuBLAS picks its kernel by shape, so a 16-row microbatch sums in
+    # another order than the 64-row batch: each result within 1e-5 of its
+    # largest magnitude
+    pipe = {k: ((a - b).abs().max() / b.abs().max()).item()
+            for k, (a, b) in {"out": (piped, dense),
+                              "grad_w": (wp.grad, wd.grad),
+                              "grad_x": (xp.grad, xd.grad)}.items()}
+    assert all(v <= 1e-5 for v in pipe.values()), pipe
+    out = {"ef_int8_max_err": ef_err, "ef_half_step": half_step,
+           "ef_residual_max": residual, "ef_s": ef_s,
+           "pipeline_rel_diff": pipe}
+    log(f"(b) int8 EF all-reduce of {list(EF_SHAPE)} f32 (std {EF_STD}): "
+        f"max |mean - g| {ef_err:.3e} (half a step {half_step:.3e}), "
+        f"residual max {residual:.3e}, {ef_s * 1e3:.1f} ms; hierarchical "
+        f"psum on (1, 1, 1) = its input; one-stage pipeline against the "
+        f"dense loop, max |Δ| / max |dense| {pipe}")
+    return out
+
+
+def _dist_reshard(params) -> dict:
+    """(c) The elastic reshard: (a)'s params saved from the (1, 1) mesh,
+    restored onto (1, 1, 1) under multi_pod_rules(fsdp=True): equal, and
+    the manifest byte-equal to an unsharded save's."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import (
+        NamedSharding, multi_pod_rules, placements, sharding_rules)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_loop import param_pspecs
+    mesh3 = make_test_mesh(1, 1, pods=1)
+    whole = tf.tree_map(lambda t: t.full_tensor(), params)
+    abstract = tf.tree_map(lambda t: torch.empty_like(t, device="meta"),
+                           whole)
+    with sharding_rules(mesh3, multi_pod_rules(fsdp=True)):
+        specs3 = param_pspecs(abstract, mesh3)
+    shardings = tf.tree_map(
+        lambda s: NamedSharding(mesh3, placements(s, mesh3)), specs3)
+    shutil.rmtree(DIST_CKPT_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        sharded = Path(ckpt.save(str(DIST_CKPT_DIR / "sharded"), 1, params))
+        save_s = time.perf_counter() - t0
+        plain = Path(ckpt.save(str(DIST_CKPT_DIR / "plain"), 1, whole))
+        manifest_equal = ((sharded / "manifest.json").read_bytes()
+                          == (plain / "manifest.json").read_bytes())
+        nbytes = sum(f.stat().st_size for f in sharded.iterdir())
+        t0 = time.perf_counter()
+        restored, _ = ckpt.restore(str(DIST_CKPT_DIR / "sharded"), 1,
+                                   abstract, shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(DIST_CKPT_DIR, ignore_errors=True)
+    assert manifest_equal
+    for t, s in zip(tf.tree_leaves(restored), tf.tree_leaves(specs3)):
+        assert isinstance(t, DTensor)
+        assert tuple(t.placements) == placements(s, mesh3)
+    equal = all(torch.equal(a.full_tensor(), b) for a, b in zip(
+        tf.tree_leaves(restored), tf.tree_leaves(whole)))
+    assert equal
+    out = {"checkpoint_bytes": nbytes, "save_s": save_s,
+           "restore_s": restore_s}
+    log(f"(c) elastic reshard (1, 1) -> (1, 1, 1): {nbytes / 1e9:.2f} GB "
+        f"saved in {save_s:.2f} s, restored in {restore_s:.2f} s, equal, "
+        f"manifest byte-equal to an unsharded save")
+    return out
+
+
+def _dist_explicit_shards() -> dict:
+    """(d) The Shard and Partial paths over NCCL.  On a (1, 1) mesh
+    ``param_pspecs`` drops every size-1 axis, so (a) places every leaf
+    ``Replicate``; here the tiny Llama's f32 params take the placements of
+    their 2x2 fsdp specs on the (1, 1) mesh's dims (explicit ``Shard``s of
+    size 1), and one step on them equals the plain step (loss 1e-6,
+    params 1e-5): FSDP's gather at use, sharded matmuls, ``Partial`` sums
+    and the norm's reduction all run as NCCL collectives."""
+    import types
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import (
+        distribute_tree, placements, sharding_rules, single_pod_rules)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import (batch_pspec,
+                                                 make_train_step,
+                                                 param_pspecs)
+    cfg = get_config("llama3-8b", tiny=True)
+    rules = single_pod_rules(fsdp=True)
+    mesh = make_test_mesh(1, 1)
+    # param_pspecs reads only the mesh's axis names and sizes
+    wide = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(2, 2))
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = tf.init_params(cfg, 0, device="cuda")
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             SyntheticLM(vocab=cfg.vocab, seq_len=16,
+                         global_batch=8).batch_at(0).items()}
+    with sharding_rules(wide, rules):
+        specs = param_pspecs(params, wide)
+    plain = tf.tree_map(lambda t: t.clone(), params)
+    want_p, _, want_m = make_train_step(cfg, opt)(plain, opt.init(plain),
+                                                  batch)
+    with sharding_rules(mesh, rules):
+        psh = distribute_tree(params, specs, mesh)
+        n_sharded = sum(any(q.is_shard() for q in t.placements)
+                        for t in tf.tree_leaves(psh))
+        bpl = placements(batch_pspec(), mesh)
+        got_p, _, got_m = make_train_step(cfg, opt)(
+            psh, opt.init(psh),
+            {k: distribute_tensor(v, mesh, bpl) for k, v in batch.items()})
+        loss = got_m["loss"].full_tensor().item()
+    loss_diff = abs(loss - want_m["loss"].item())
+    param_diff = max((a.full_tensor() - b).abs().max().item() for a, b in
+                     zip(tf.tree_leaves(got_p), tf.tree_leaves(want_p)))
+    n_leaves = len(list(tf.tree_leaves(psh)))
+    assert n_sharded > 0
+    assert loss_diff <= 1e-6 and param_diff <= 1e-5, (loss_diff, param_diff)
+    log(f"(d) {cfg.name} f32 with its 2x2 fsdp placements on the (1, 1) "
+        f"mesh ({n_sharded} of {n_leaves} leaves hold a Shard): one step "
+        f"against the plain step, loss |diff| {loss_diff!r}, params max "
+        f"|diff| {param_diff!r}")
+    return {"leaves_sharded": n_sharded, "leaves": n_leaves,
+            "loss_diff": loss_diff, "param_diff": param_diff}
+
+
+def phase_distributed(train_summary: dict) -> dict:
+    """The distributed path on the card at world size 1 over NCCL: (a) the
+    sharded train step at phase 11's width, depth and batches, (b) the
+    collectives and the pipeline, (c) the elastic reshard, (d) a small
+    step on explicit Shard placements.  It launches none of K1-K3."""
+    from repro_torch import kernels
+    from repro_torch.configs.llama3_2_3b import CONFIG
+    full = train_summary["full"]
+    log(f"== phase 12: the distributed path, {CONFIG.name} on a (1, 1) "
+        f"DeviceMesh at world size 1 (nccl)")
+    wrappers = [getattr(kernels, name) for name in KERNELS]
+    for fn in wrappers:
+        fn.launches = fn.calls = 0
+    with _world_of_one():
+        out = {}
+        out["train"], params = _dist_train(CONFIG, full["losses"][0], full)
+        out["reshard"] = _dist_reshard(params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["collectives"] = _dist_collectives()
+        out["explicit_shards"] = _dist_explicit_shards()
+    launched = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+    assert not any(launched.values()), launched
+    log(f"K1-K3 launches in phase 12: {launched} (the distributed path runs "
+        f"none)")
+    return out
+
+
 def _compile_logged(eng, label, compile_fn, *args):
     """Compile one plan through the engine's cache and print its compile
     time and decisions."""
@@ -2793,6 +3115,7 @@ def main() -> int:
     direct_summary = timed("phase 10", phase_direct, fixed, served5, tick5,
                            paged_summary["h2d_bytes_per_s"])
     train_summary = timed("phase 11", phase_train)
+    dist_summary = timed("phase 12", phase_distributed, train_summary)
     # each main path's counts, zeroed just before it and read just after:
     # phase 5's cold serving, phase 6's prefix-cached serving per bind mode,
     # phase 7's paged serving, phase 8's sharded serving and phase 9's HTTP
@@ -2933,6 +3256,7 @@ def main() -> int:
     log(f"phase 9 (HTTP): {json.dumps(http_summary)}")
     log(f"phase 10 (direct): {json.dumps(direct_summary)}")
     log(f"phase 11 (train): {json.dumps(train_summary)}")
+    log(f"phase 12 (distributed): {json.dumps(dist_summary)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

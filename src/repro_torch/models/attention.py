@@ -18,8 +18,10 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import (DTYPES, dense_init, rope_apply,
                                        rope_table, vec_norm_apply)
 
@@ -84,7 +86,26 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Grouped scaled-dot-product attention.
 
     q [B,T,H,dh], k/v [B,S,Hkv,dh], mask [T,S] additive (f32).
+
+    On DTensors it runs per shard, as ``shard_map`` would: attention is
+    independent across the batch and across KV-head groups, so q, k and v
+    keep their batch shards, and their head shards on the mesh dims that
+    shard both the query and the KV heads, and go replicated on every other
+    mesh dim; each rank attends over its local block
+    (``to_local`` → this function → ``DTensor.from_local``).  DTensor's own
+    ``bmm`` strategy would see the batch and head shards flattened into one
+    strided batch dim, whose redistribution planning grows with the mesh.
     """
+    if isinstance(q, DTensor):
+        mesh = q.device_mesh
+        pl = tuple(p if (p.is_shard(0) and k.placements[i].is_shard(0))
+                   or (p.is_shard(2) and k.placements[i].is_shard(2))
+                   else Replicate()
+                   for i, p in enumerate(q.placements))
+        ql, kl, vl = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
+        out = _sdpa(ql, kl, vl, mask, kl.shape[2])
+        return DTensor.from_local(out, mesh, pl, run_check=False,
+                                  shape=q.shape, stride=q.stride())
     B, T, H, dh = q.shape
     g = H // n_kv
     qg = q.reshape(B, T, n_kv, g, dh)
@@ -121,12 +142,15 @@ def attn_apply(
     B, T, _ = x.shape
     Hkv = p["wk"].shape[1]
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    q = shard(q, "batch", None, "heads", None)
     if cfg.qk_norm:
         q = vec_norm_apply(p.get("q_norm"), q, cfg.eps)
 
     kv_src = x if kv_x is None else kv_x
     k = torch.einsum("btd,dhk->bthk", kv_src, p["wk"])
     v = torch.einsum("btd,dhk->bthk", kv_src, p["wv"])
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     if cfg.qk_norm:
         k = vec_norm_apply(p.get("k_norm"), k, cfg.eps)
 
@@ -158,10 +182,30 @@ def attn_apply(
         mask[:, : meta_kv[0].shape[-3]] = 0.0
 
     out = _sdpa(q, k, v, mask, Hkv)
-    y = torch.einsum("bthd,hdD->btD", out, p["wo"])
+    y = _out_proj(out, p["wo"])
     if "gate" in p:
         y = torch.tanh(p["gate"]) * y
     return y, cache
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bthd,hdD->btD")``.  On DTensors it runs per shard, for
+    the reason :func:`_sdpa` gives: each rank contracts its block of heads
+    with the same rows of ``wo``, and the sum over head shards stays
+    pending (``Partial``) until the residual stream's ``shard`` reduces
+    it; ``wo``'s gradient is summed over the batch shards."""
+    if not isinstance(out, DTensor):
+        return torch.einsum("bthd,hdD->btD", out, wo)
+    mesh, pl = out.device_mesh, out.placements
+    w_pl = [Shard(0) if p.is_shard(2) else Replicate() for p in pl]
+    w_grad = [Partial() if p.is_shard(0) else w for p, w in zip(pl, w_pl)]
+    wl = wo.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    y = torch.einsum("bthd,hdD->btD", out.to_local(), wl)
+    B, T, D = out.shape[0], out.shape[1], wo.shape[-1]
+    return DTensor.from_local(y, mesh, [Partial() if p.is_shard(2) else p
+                                        for p in pl],
+                              run_check=False, shape=(B, T, D),
+                              stride=(T * D, D, 1))
 
 
 # -- multi-head latent attention (DeepSeek-V3) ------------------------------------
@@ -205,6 +249,7 @@ def mla_apply(
     q = torch.einsum("btd,dr->btr", x, p["wq_a"])
     q = vec_norm_apply(p["q_norm"], q, cfg.eps)
     q = torch.einsum("btr,rhk->bthk", q, p["wq_b"])
+    q = shard(q, "batch", None, "heads", None)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
 
     kv = torch.einsum("btd,dr->btr", x, p["wkv_a"])

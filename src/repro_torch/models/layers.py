@@ -4,8 +4,9 @@ Every block follows the reference's (init, apply) convention with plain-dict
 parameter trees: ``*_init`` draws from an explicit ``torch.Generator`` on
 ``device`` (the ``meta`` device gives shapes and dtypes only), ``*_apply``
 is a plain function of tensors that runs where its inputs are.  The
-reference's ``shard(...)`` constraints are no-ops without a device mesh and
-are left out.
+reference's ``shard(...)`` constraints are in place: no-ops without a
+device mesh, ``redistribute``s of DTensor activations under one
+(``repro_torch.distributed.sharding``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -128,6 +130,7 @@ def mlp_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     else:
         h = F.gelu(x @ p["w1"], approximate="tanh")
+    h = shard(h, "batch", None, "mlp")
     return h @ p["w2"]
 
 

@@ -20,8 +20,13 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import psum
+from repro_torch.distributed.sharding import (P, axis_size, current_mesh,
+                                              logical_spec, mesh_shape,
+                                              placements, shard)
 from repro_torch.models.layers import DTYPES, dense_init, mlp_apply, normal
 
 
@@ -90,10 +95,12 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     buf.index_put_((se, pos_c),
                    torch.where(keep[:, None], xf[st], 0).to(x.dtype),
                    accumulate=True)
+    buf = shard(buf, "expert", None, None)
 
     # ---- batched expert FFN (SwiGLU) ---------------------------------------
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w1"]))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["w3"])
+    h = shard(h, "expert", None, None)
     out_buf = torch.einsum("ecf,efd->ecd", h, p["w2"])
 
     # ---- combine -------------------------------------------------------------
@@ -108,15 +115,99 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def moe_apply_ep_local(p: Dict, x: torch.Tensor, cfg: ModelConfig
                        ) -> torch.Tensor:
-    """Expert-parallel MoE with local dispatch.
+    """Expert-parallel MoE with *local* dispatch.
 
-    The reference runs each model shard's own experts inside ``shard_map``
-    and combines with one ``psum`` when a device mesh with a ``model`` axis
-    is current, and falls back to :func:`moe_apply` otherwise.  The port has
-    no mesh yet (it comes with the distributed slice), so it always takes
-    that fallback: the same function, the same outputs.
+    Under TP, activations are replicated across the model axis while the
+    expert stack is sharded over it.  Every model shard already *has* all
+    tokens, so it filters the (token, k) pairs routed to its own
+    ``E / n_model`` experts, runs its expert slice, and contributes its
+    partial output to one sum over ``model`` — the same wire cost as a TP
+    MLP all-reduce, instead of gathering the full expert buffer.
+
+    The reference's ``shard_map``, here on the current ``DeviceMesh``: x
+    goes to its batch shards, the router whole and each expert stack to
+    ``model`` shards (``redistribute`` → ``to_local``; a plain tensor is
+    taken as replicated), the body runs on each rank's blocks, and y comes
+    back as a DTensor sharded as the batch.  The sum over ``model`` is
+    differentiable (:func:`collectives.psum`), and each input's gradient is
+    summed over the mesh axes it was replicated on.  Falls back to
+    :func:`moe_apply` without a mesh, without a ``model`` axis of more than
+    one rank, or when the experts do not split over it.
     """
-    return moe_apply(p, x, cfg)
+    mesh = current_mesh()
+    shape = mesh_shape(mesh) if mesh is not None else {}
+    if shape.get("model", 1) == 1 or cfg.n_experts % shape["model"] != 0:
+        return moe_apply(p, x, cfg)
+
+    n_shards = shape["model"]
+    E_loc = cfg.n_experts // n_shards
+    B, T, D = x.shape
+    N = B * T
+    K = cfg.top_k
+    batch_spec = logical_spec("batch")
+    bax = batch_spec[0] if len(batch_spec) else None
+    C = capacity(max(1, N // axis_size(mesh, bax)), cfg)  # per-shard tokens
+
+    def local(t, spec):
+        """This rank's block of ``t`` under ``spec``; its gradient summed
+        over the mesh axes the block is replicated on."""
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        pl = placements(spec, mesh)
+        return t.redistribute(mesh, pl).to_local(
+            grad_placements=[q if q.is_shard() else Partial() for q in pl])
+
+    xl = local(x, P(bax, None, None))
+    router = local(p["router"], P(None, None))
+    w1, w3, w2 = (local(p[k], P("model", None, None))
+                  for k in ("w1", "w3", "w2"))
+
+    me = mesh.get_local_rank("model")
+    Bl, Tl, _ = xl.shape
+    Nl = Bl * Tl
+    xf = xl.reshape(Nl, D)
+    logits = (xf @ router).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = top_k(probs, K)
+    if cfg.router_normalize:
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    gates = gates.to(xl.dtype)
+
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(Nl, device=xl.device).repeat_interleave(K)
+    flat_g = gates.reshape(-1)
+    mine = (flat_e // E_loc) == me          # my experts only
+    local_e = torch.where(mine, flat_e % E_loc, E_loc)  # E_loc = drop row
+    order = torch.argsort(local_e, stable=True)
+    se, st, sg = local_e[order], flat_t[order], flat_g[order]
+    counts = torch.bincount(local_e, minlength=E_loc + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(Nl * K, device=xl.device) - starts[
+        torch.clamp(se, max=E_loc)]
+    keep = (se < E_loc) & (pos < C)
+    pos_c = torch.where(keep, pos, 0)
+    se_c = torch.where(keep, se, 0)
+
+    buf = torch.zeros((E_loc, C, D), dtype=xl.dtype, device=xl.device)
+    buf = buf.index_put((se_c, pos_c),
+                        torch.where(keep[:, None], xf[st], 0).to(xl.dtype),
+                        accumulate=True)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, w1))
+    h = h * torch.einsum("ecd,edf->ecf", buf, w3)
+    out_buf = torch.einsum("ecf,efd->ecd", h, w2)
+
+    contrib = out_buf[se_c, pos_c] * (sg * keep.to(sg.dtype))[:, None]
+    y = torch.zeros((Nl, D), dtype=xl.dtype, device=xl.device).index_add(
+        0, st, contrib)
+    # combine across expert shards: one TP-style all-reduce
+    y = psum(y, mesh, "model").reshape(Bl, Tl, D)
+    y = DTensor.from_local(y, mesh, placements(P(bax, None, None), mesh),
+                           run_check=False, shape=(B, T, D),
+                           stride=(T * D, D, 1))
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x.reshape(N, D), cfg).reshape(B, T, D)
+    return y
 
 
 def aux_load_balance_loss(p: Dict, x: torch.Tensor, cfg: ModelConfig

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import DTYPES, dense_init, normal
 
 
@@ -99,6 +100,7 @@ def ssm_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     xs = xBC[..., :di].reshape(B, T, nh, hd)
     B_ = xBC[..., di: di + G * S].reshape(B, T, G, S)
     C_ = xBC[..., di + G * S:].reshape(B, T, G, S)
+    xs = shard(xs, "batch", None, "inner", None)
 
     dt = F.softplus(dt.float() + p["dt_bias"])  # [B,T,nh]
     A = -torch.exp(p["A_log"])  # [nh]

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.chunked import resolve_device
+from repro_torch.distributed.sharding import gather_fsdp, shard
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -389,8 +390,10 @@ def abstract_params(cfg: ModelConfig) -> Dict:
 def _logits(params, x, cfg) -> torch.Tensor:
     x = norm_apply(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
-        return unembed_apply(params["embed"], x, cfg)
-    return x @ params["lm_head"]
+        out = unembed_apply(gather_fsdp(params["embed"]), x, cfg)
+    else:
+        out = x @ gather_fsdp(params["lm_head"])
+    return shard(out, "batch", None, "vocab")
 
 
 def _window_schedule(cfg: ModelConfig) -> torch.Tensor:
@@ -418,18 +421,28 @@ def _scan_group(g: Group, gp, x, cfg, apply_one, caches=None, extras=None):
     cache goes back into ``caches`` in place; the aux outputs (cross K/V),
     if any, come back stacked.  Returns (x, caches, stacked aux or None).
     Under ``cfg.remat == "full"``, where a gradient is being taken, each
-    layer is checkpointed: its backward recomputes it."""
+    layer is checkpointed: its backward recomputes it.  Under an FSDP mesh
+    a layer's weights are gathered at its use (``gather_fsdp``), inside
+    the checkpoint; the residual stream is laid out as ("batch", "seq")
+    after every layer."""
     n = g.n_layers
-    body = apply_one
+
+    def gathered(p_l, *rest):
+        return apply_one(gather_fsdp(p_l), *rest)
+    body = gathered
     if (cfg.remat == "full" and torch.is_grad_enabled()
             and (x.requires_grad
                  or any(t.requires_grad for t in tree_leaves(gp)))):
         def body(*args):
-            return checkpoint(apply_one, *args, use_reentrant=False)
+            return checkpoint(gathered, *args, use_reentrant=False)
     auxes = []
     for p_l, cache_l, extra_l in zip(_unbind(gp, n), _unbind(caches, n),
                                      _unbind(extras, n)):
         x, new_c, aux_l = body(p_l, x, cache_l, extra_l)
+        # residual-stream constraint: no-op by default; mapping "seq" to a
+        # mesh axis turns the per-layer all-reduces into reduce-scatter /
+        # all-gather pairs (Megatron-style sequence parallelism)
+        x = shard(x, "batch", "seq", None)
         if caches is not None:
             _write_back(cache_l, new_c)
         auxes.append(aux_l)
@@ -475,8 +488,9 @@ def forward(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     dev = tokens.device
     T = tokens.shape[1] + cfg.n_meta_tokens
     pos = torch.arange(T, device=dev)
-    x = _with_meta(params, embed_apply(params["embed"], tokens, cfg).to(
-        DTYPES[cfg.dtype]), cfg)
+    x = embed_apply(gather_fsdp(params["embed"]), tokens, cfg).to(
+        DTYPES[cfg.dtype])
+    x = _with_meta(params, shard(x, "batch", "seq", None), cfg)
     if not cfg.rope and "pos_embed" in params:
         x = x + params["pos_embed"][:T][None].to(x.dtype)
     if cfg.family == "encdec":
@@ -560,8 +574,8 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     caches, aux_caches)."""
     T = tokens.shape[1] + cfg.n_meta_tokens
     pos = torch.arange(T, device=tokens.device)
-    x = _with_meta(params, embed_apply(params["embed"], tokens, cfg).to(
-        DTYPES[cfg.dtype]), cfg)
+    x = _with_meta(params, embed_apply(gather_fsdp(params["embed"]), tokens,
+                                       cfg).to(DTYPES[cfg.dtype]), cfg)
     if not cfg.rope and "pos_embed" in params:
         x = x + params["pos_embed"][:T][None].to(x.dtype)
     if cfg.family == "encdec":
@@ -620,7 +634,8 @@ def decode_step(params: Dict, token: torch.Tensor, caches: Dict,
     written in place; returns (logits, caches)."""
     eff_pos = int(position) + cfg.n_meta_tokens
     pos = torch.full((1,), eff_pos, dtype=torch.long, device=token.device)
-    x = embed_apply(params["embed"], token, cfg).to(DTYPES[cfg.dtype])
+    x = embed_apply(gather_fsdp(params["embed"]), token, cfg).to(
+        DTYPES[cfg.dtype])
     if not cfg.rope and "pos_embed" in params:
         x = x + params["pos_embed"][pos][None].to(x.dtype)
     if cfg.family == "encdec":

@@ -31,8 +31,7 @@ relational analogue of the classic tensor-parallel split taxonomy:
           combine is a key-disjoint UNION along ``h``.
 
 Legality additionally consults the sharding vocabulary in
-``DEFAULT_RULES`` (a copy of the reference's
-``distributed/sharding.py`` vocabulary, whose module needs a mesh): a
+``DEFAULT_RULES`` (``repro_torch.distributed.sharding``): a
 site is only eligible when its logical axis ("heads" / "kv_heads" /
 "vocab" / "mlp" / "inner") maps to a non-empty mesh-axis rule.
 
@@ -50,30 +49,10 @@ from typing import Dict, List, Optional, Tuple
 from repro_torch.core.relational import (
     GroupAgg, Join, Key, Project, RelNode, RelSchema, Scan, resolve, walk,
 )
+from repro_torch.distributed.sharding import DEFAULT_RULES
 from repro_torch.planner.cost import CostParams
 
 SHARD_SEP = "::shard"
-
-# logical axis -> mesh axes: the reference's sharding vocabulary
-# (``distributed/sharding.py``), copied because that module builds meshes
-DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
-    "batch": ("data",),
-    "vocab": ("model",),
-    "heads": ("model",),
-    "kv_heads": ("model",),
-    "expert": ("model",),
-    "mlp": ("model",),
-    "inner": ("model",),
-    "embed": (),
-    "embed_fsdp": (),
-    "seq": (),
-    "kv_seq": (),
-    "qk": (),
-    "state": (),
-    "frames": (),
-    "image": (),
-    "layers": (),
-}
 
 # combine operator per site kind
 COMBINE_SUM = "sum"        # UNION ALL + per-group SUM  (row-parallel)

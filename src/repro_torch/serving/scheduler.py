@@ -50,6 +50,9 @@ class Request:
     # preemption-resume re-prefill may hit the cache again, but usage
     # reports the original admission's reuse, so it is recorded once
     cached_tokens: int = 0
+    # why the scheduler gave the request up (``on_done`` still fires):
+    # "context_exceeds_pool" when its full context can never fit the pool
+    error: Optional[str] = None
 
     @property
     def context(self) -> List[int]:
@@ -71,6 +74,12 @@ class Request:
     def past_deadline(self, now_s: float) -> bool:
         budget = self.deadline_budget_s()
         return budget is not None and (now_s - self.arrival_s) > budget
+
+
+def pages_needed(n_tokens: int, page_size: int) -> int:
+    """Pages a sequence of ``n_tokens`` holds, plus the one a decode step
+    may open."""
+    return -(-n_tokens // page_size) + 1
 
 
 @dataclasses.dataclass
@@ -221,11 +230,21 @@ class ContinuousBatcher:
     def _admit(self) -> None:
         while self.queue and len(self.active) < self.max_batch:
             req = self.queue[0]
+            if pages_needed(len(req.prompt) + req.max_new_tokens,
+                            self.kv.cfg.page_size) > self.kv.cfg.n_pages:
+                # it can never fit, even alone: waiting for pages would
+                # leave the queue stuck behind it forever
+                self.queue.popleft()
+                req.error = "context_exceeds_pool"
+                req.done_s = time.perf_counter() - req.arrival_s
+                if self.on_done is not None:
+                    self.on_done(req)
+                continue
             # a preempted request re-prefills over its full context
             # (prompt + preserved generated prefix), so page demand grows
             # with what it already produced
             ctx_len = len(req.prompt) + len(req.generated)
-            need = -(-ctx_len // self.kv.cfg.page_size) + 1
+            need = pages_needed(ctx_len, self.kv.cfg.page_size)
             if self.kv.free_page_count() < need:
                 break
             seq_id = next((i for i in range(self.kv.max_seqs)

@@ -67,7 +67,8 @@ from repro_torch.obs.log import set_flight_recorder
 from repro_torch.obs.metrics import (OPENMETRICS_CONTENT_TYPE,
                                      PROMETHEUS_CONTENT_TYPE)
 from repro_torch.serving import api
-from repro_torch.serving.scheduler import ContinuousBatcher, Request
+from repro_torch.serving.scheduler import (ContinuousBatcher, Request,
+                                          pages_needed)
 from repro_torch.serving.watchdog import DriftWatchdog
 
 
@@ -234,6 +235,16 @@ class AsyncLLMServer:
                 400, f"prompt ({len(parsed.prompt)} tokens) + max_tokens "
                      f"({parsed.max_tokens}) exceeds the model context "
                      f"({self.engine.max_len})", code="context_length")
+        kv_cfg = self.batcher.kv.cfg
+        need = pages_needed(len(parsed.prompt) + parsed.max_tokens,
+                            kv_cfg.page_size)
+        if need > kv_cfg.n_pages:
+            self._reject("context_exceeds_pool")
+            raise api.ApiError(
+                400, f"prompt ({len(parsed.prompt)} tokens) + max_tokens "
+                     f"({parsed.max_tokens}) needs {need} KV pages, more "
+                     f"than the whole pool ({kv_cfg.n_pages})",
+                code="context_exceeds_pool")
         if self._queue_depth() >= cfg.max_queue_depth:
             self._reject("queue_full")
             raise api.ApiError(

@@ -14,6 +14,13 @@ results into the tensors they are given (under ``torch.no_grad``), a
 bounded slice of a leaf at a time: a functional update would hold the old
 and new state together (57.8 GB of f32 moments alone at Llama-3.2-3B).
 The numbers are the same; the returned trees are the ones given.
+
+On DTensor leaves (a sharded train step) the state is placed as its
+parameter, and the update and the clip's scaling, both elementwise, run on
+each leaf's local shard (``to_local()``: a sharded DTensor has no flat
+view).  ``global_norm`` takes each leaf's sum of squares as DTensor
+computes it, so a replicated dim is counted once, and reads its value with
+``full_tensor()``; weight decay reads the leaf's global rank.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import math
 from typing import Any, Iterator, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import DTYPES
 from repro_torch.models.transformer import tree_leaves, tree_map
@@ -36,6 +44,11 @@ class AdamWState(NamedTuple):
     step: torch.Tensor
     m: Any
     v: Any
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage); a plain tensor."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _chunks(*tensors: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
@@ -77,10 +90,12 @@ class AdamW:
         dt = DTYPES[self.state_dtype]
         leaf = next(tree_leaves(params))
 
-        def z(p):
-            return torch.zeros(p.shape, dtype=dt, device=p.device)
+        def z(p):  # placed as p on a mesh
+            return torch.zeros_like(p, dtype=dt,
+                                    memory_format=torch.contiguous_format)
         return AdamWState(
-            step=torch.zeros((), dtype=torch.int32, device=leaf.device),
+            step=torch.zeros((), dtype=torch.int32,
+                             device=_local(leaf).device),
             m=tree_map(z, params), v=tree_map(z, params))
 
     def update(self, grads, state: AdamWState, params
@@ -97,7 +112,9 @@ class AdamW:
             for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m),
                                   tree_leaves(state.v), tree_leaves(params)):
                 decay = self.weight_decay and p.ndim >= 2  # matrices only
-                for gc, mc, vc, pc in _chunks(g.contiguous(), m, v, p):
+                for gc, mc, vc, pc in _chunks(_local(g).contiguous(),
+                                              _local(m), _local(v),
+                                              _local(p)):
                     gf = gc.float()
                     mf = b1 * mc.float() + (1 - b1) * gf
                     vf = b2 * vc.float() + (1 - b2) * gf.square()
@@ -112,9 +129,13 @@ class AdamW:
         return params, AdamWState(step=step, m=state.m, v=state.v)
 
 
+def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    s = leaf.float().square().sum()
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(l.float().square().sum()
-                          for l in tree_leaves(tree)))
+    return torch.sqrt(sum(_sum_squares(l) for l in tree_leaves(tree)))
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -125,6 +146,6 @@ def clip_by_global_norm(grads, max_norm: float):
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     with torch.no_grad():
         for g in tree_leaves(grads):
-            for (c,) in _chunks(g):
+            for (c,) in _chunks(_local(g)):
                 c.copy_(c.float() * scale)
     return grads, norm

@@ -989,3 +989,99 @@ def test_restart_on_the_card_reproduces_uninterrupted_run(cuda, tmp_path):
     assert [r.restarts for r in runs] == [0, 1]
     assert runs[0].steps_run == runs[1].steps_run == 12
     assert runs[1].losses[-1] == pytest.approx(runs[0].losses[-1], abs=1e-6)
+
+
+# -- the distributed path at world size 1 (NCCL) --------------------------------
+
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path):
+    """A one-rank NCCL process group (NCCL takes one rank per card; its
+    rendezvous a FileStore under ``tmp_path``), destroyed after the test."""
+    import torch.distributed as dist
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_case():
+    import dataclasses
+    from repro_torch.configs.llama3_2_3b import CONFIG
+    return dataclasses.replace(CONFIG, n_layers=2)
+
+
+def test_mesh_train_step_on_the_card_is_bit_equal_to_the_plain_step(
+        nccl_world):
+    """Llama-3.2-3B's width at depth 2 (bf16, remat): the train step on
+    DTensor leaves placed by ``param_pspecs`` on a (1, 1) mesh under
+    single_pod_rules(fsdp=True) gives the plain step's loss, grad_norm and
+    params bit for bit."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.sharding import (
+        distribute_tree, placements, sharding_rules, single_pod_rules)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import (batch_pspec,
+                                                 make_train_step,
+                                                 param_pspecs)
+    cfg = _dist_case()
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt)
+    batch = _train_batch(cfg, nccl_world, seq=64, batch=2)
+    plain = tf.init_params(cfg, 0, device=nccl_world)
+    _, _, want = step(plain, opt.init(plain), batch)
+    mesh = make_test_mesh(1, 1)
+    with sharding_rules(mesh, single_pod_rules(fsdp=True)):
+        params = tf.init_params(cfg, 0, device=nccl_world)
+        params = distribute_tree(params, param_pspecs(params, mesh), mesh)
+        bsh = {k: distribute_tensor(v, mesh, placements(batch_pspec(), mesh))
+               for k, v in batch.items()}
+        _, _, got = step(params, opt.init(params), bsh)
+    for k in ("loss", "grad_norm"):
+        g = got[k].full_tensor() if hasattr(got[k], "full_tensor") else got[k]
+        assert torch.equal(g, want[k]), k
+    for a, b in zip(tf.tree_leaves(params), tf.tree_leaves(plain)):
+        assert torch.equal(a.full_tensor(), b)
+
+
+def test_restore_onto_a_mesh_on_the_card_is_exact(nccl_world, tmp_path):
+    """A checkpoint saved from a (1, 1) mesh, restored onto a (1, 1, 1)
+    ("pod", "data", "model") mesh under multi_pod_rules(fsdp=True): equal
+    leaves, placed by ``param_pspecs``, and a manifest byte-equal to an
+    unsharded save's."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import (
+        NamedSharding, distribute_tree, multi_pod_rules, placements,
+        sharding_rules, single_pod_rules)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_loop import param_pspecs
+    cfg = _dist_case()
+    plain = tf.init_params(cfg, 0, device=nccl_world)
+    mesh, mesh3 = make_test_mesh(1, 1), make_test_mesh(1, 1, pods=1)
+    with sharding_rules(mesh, single_pod_rules(fsdp=True)):
+        params = distribute_tree(plain, param_pspecs(plain, mesh), mesh)
+    ckpt.save(str(tmp_path / "sharded"), 1, params)
+    ckpt.save(str(tmp_path / "plain"), 1, plain)
+    name = "step_00000001/manifest.json"
+    assert ((tmp_path / "sharded" / name).read_bytes()
+            == (tmp_path / "plain" / name).read_bytes())
+    abstract = tf.tree_map(lambda t: torch.empty_like(t, device="meta"),
+                           plain)
+    with sharding_rules(mesh3, multi_pod_rules(fsdp=True)):
+        specs3 = param_pspecs(abstract, mesh3)
+    restored, _ = ckpt.restore(
+        str(tmp_path / "sharded"), 1, abstract,
+        tf.tree_map(lambda s: NamedSharding(mesh3, placements(s, mesh3)),
+                    specs3))
+    for t, s, want in zip(tf.tree_leaves(restored), tf.tree_leaves(specs3),
+                          tf.tree_leaves(plain)):
+        assert isinstance(t, DTensor)
+        assert tuple(t.placements) == placements(s, mesh3)
+        assert torch.equal(t.full_tensor(), want)

@@ -1,4 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch/`` (nor the GPU smoke
+"""The port stands alone: no file of ``src/repro_torch/`` (the distributed
+and launch modules included; nor the GPU smoke
 script, nor the port's HTTP server, quickstart and training examples)
 imports JAX or anything of the JAX package ``repro``, and every module
 imports without a GPU, ``nvcc`` or ``triton``."""
@@ -59,3 +60,12 @@ def test_checker_catches_reference_imports():
             if isinstance(n, ast.ImportFrom)]
         assert any(_forbidden(n) for n in names), src
     assert not _forbidden("repro_torch.core.executor")
+
+
+@pytest.mark.parametrize("rel", ["distributed/sharding.py",
+                                 "distributed/collectives.py",
+                                 "distributed/pipeline.py",
+                                 "launch/mesh.py"])
+def test_distributed_modules_are_walked(rel):
+    """The distributed slice's modules are among the files checked above."""
+    assert PORT / rel in FILES

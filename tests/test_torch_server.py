@@ -406,3 +406,61 @@ def test_admin_shutdown_stops_the_server(engine):
     finally:
         if thread.is_alive():  # the loop is closed once it has stopped
             srv.shutdown()
+
+
+# -- a request that can never fit the page pool ------------------------------
+
+
+def test_request_that_can_never_fit_is_failed_where_jax_spins():
+    """The reference's batcher waits forever on a queued request whose
+    context needs more pages than the whole pool: one ``tick()`` admits
+    nothing and still reports work (so a scheduler loop spins; called once
+    here, never in a loop).  The port's fails it through ``on_done`` with
+    ``error="context_exceeds_pool"`` and serves the request behind it."""
+    from repro.serving.kvcache import PagedKVCache as JKV
+    from repro.serving.kvcache import PagedKVConfig as JKVConfig
+    from repro.serving.scheduler import ContinuousBatcher as JBatcher
+    from repro.serving.scheduler import Request as JRequest
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    kw = dict(n_layers=1, n_kv=2, head_dim=8, page_size=4, n_pages=4,
+              max_pages_per_seq=8)
+    big = list(range(20))  # ceil(24 / 4) + 1 = 7 pages > 4
+
+    def prefill(req, seq_id):
+        return 1
+
+    def decode(seq_ids, last):
+        return [1] * len(seq_ids)
+
+    jb = JBatcher(JKV(JKVConfig(**kw), max_seqs=2), prefill, decode,
+                  max_batch=1)
+    jb.submit(JRequest(rid=0, prompt=big, max_new_tokens=4))
+    assert jb.tick() is True
+    assert not jb.active and len(jb.queue) == 1
+
+    done = []
+    b = ContinuousBatcher(PagedKVCache(PagedKVConfig(**kw), max_seqs=2,
+                                       device="cpu"),
+                          prefill, decode, max_batch=1, on_done=done.append)
+    b.submit(Request(rid=0, prompt=big, max_new_tokens=4))
+    b.submit(Request(rid=1, prompt=[1, 2, 3], max_new_tokens=2))
+    finished = b.run(max_ticks=10)
+    assert [(r.rid, r.error) for r in done] == [(0, "context_exceeds_pool"),
+                                                (1, None)]
+    assert [r.rid for r in finished] == [1]
+    assert finished[0].generated == [1, 1]
+    assert not b.queue and not b.active
+
+
+def test_request_larger_than_the_pool_is_400(engine):
+    """The server checks the pool at admission: prompt + max_tokens that
+    need more pages than the pool holds are a 400, not a queued request."""
+    with _server(engine, n_pages=4, max_tokens_cap=8) as srv:
+        resp = _get(srv, "/v1/completions", "POST",
+                    {"prompt": list(range(10)), "max_tokens": 8})
+        assert resp.status == 400
+        assert resp.json()["error"]["code"] == "context_exceeds_pool"
+        ok = _get(srv, "/v1/completions", "POST",
+                  {"prompt": [1, 2, 3], "max_tokens": 2})
+        assert ok.status == 200
