@@ -43,7 +43,15 @@ phase 11's steps on DTensor leaves placed by ``param_pspecs`` on a (1, 1)
 mesh (the first loss equal to phase 11's), the int8 error-feedback
 all-reduce, the hierarchical psum, a one-stage pipeline against the dense
 loop, and the elastic reshard of the params onto a (1, 1, 1) mesh; it
-launches none of K1-K3.  Each serving run checks that every GEMM
+launches none of K1-K3.  Phase 13 runs the dry-run (``python -m
+repro_torch.launch.dryrun`` and the hillclimb's B1 cell as subprocesses,
+on fake 256- and 512-rank meshes) and prints its roofline table, then
+counts olmo-1b's decode_32k and train_4k steps at full width and depth on
+the card with the dry-run's counters and fails if either runs faster than
+the H100 roofline of its own count; it launches none of K1-K3.  Phase 3
+times every kernel row twice: with CUDA events around each launch and
+again with the launch queued behind a device spin (``sleep_ms``).  Each
+serving run checks that every GEMM
 went through K1 ``chunked_matmul`` (once a shard at a sharded site), every
 decode attention (and one-token suffix) through K2 ``paged_attention``
 and every prefill attention (cold, or a suffix over a cached prefix)
@@ -65,6 +73,7 @@ import gc
 import importlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -83,6 +92,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # Llama-3-8B's widths and depth, from the port's model registry (this
 # import fails outside a checkout)
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B  # noqa: E402
+# the card's data-sheet rates, one source with the dry-run's roofline
+from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS  # noqa: E402
 
 VOCAB, D_MODEL, N_HEADS, N_KV, D_FF, THETA = (
     LLAMA3_8B.vocab, LLAMA3_8B.d_model, LLAMA3_8B.n_heads, LLAMA3_8B.n_kv,
@@ -95,8 +106,8 @@ N_LAYERS = LLAMA3_8B.n_layers
 # the f32 rate for K1 and K2; for K3, which multiplies on the tensor cores,
 # dense TF32 over 3 in f32 (3xTF32: three products an element) and dense
 # bf16 in bf16 (its f32-FMA bound is reported beside).
-PEAKS = (3.35e12, 67e12)
-TENSOR_PEAKS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+PEAKS = (HBM_BW, 67e12)
+TENSOR_PEAKS = {torch.float32: 495e12 / 3, torch.bfloat16: PEAK_FLOPS}
 
 # K1: the sweep of tests/test_kernels.py, then ragged N, a K that is no
 # multiple of the 16-byte vector (the scalar path) and split-K shapes
@@ -211,6 +222,28 @@ DIST_STORE = ROOT / "build" / "dist_store"
 DIST_CKPT_DIR = ROOT / "build" / "dist_ckpt"
 EF_SHAPE, EF_STD = (4096, 4096), 0.05
 PIPE_L, PIPE_D, PIPE_B, PIPE_MICRO = 8, 1024, 64, 4
+# phase 13: the dry-run and the roofline.  (a) the dry-run's cells on the
+# production meshes, each a subprocess (phase 12 brought up this process's
+# default group; the dry-run brings up its own "fake" group of 256 or 512
+# ranks): olmo-1b decode on 16x16 and 2x16x16, OLMoE-1B-7B prefill on 16x16
+# (expert parallelism), a full-attention long_500k cell (recorded as
+# skipped) and the hillclimb's B1_ep_local.  (b) olmo-1b's decode_32k and
+# train_4k cells at full width and depth on this card at world size 1, the
+# step counted by the dry-run's counters and timed against the H100
+# roofline; global_batch cut to fit: decode_32k's 128 sequences of 32768
+# cached rows would need 550 GB of K/V (8 x 32768 x 16 layers x 8192 B =
+# 34.4 GB at 8); train_4k from 256 to the first of these that fits
+DRYRUN_CELLS = [["--arch", "olmo-1b", "--shape", "decode_32k",
+                 "--multi-pod", "both"],
+                ["--arch", "olmoe-1b-7b", "--shape", "prefill_32k",
+                 "--multi-pod", "single"],
+                ["--arch", "olmo-1b", "--shape", "long_500k",
+                 "--multi-pod", "single"]]
+DRYRUN_HILLCLIMB = "B1_ep_local"
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_TIMEOUT_S = 300
+ROOFLINE_DECODE_BATCH, ROOFLINE_TRAIN_BATCHES = 8, (8, 4, 2, 1)
+ROOFLINE_WARMUP, ROOFLINE_STEPS = 2, 5
 
 
 def log(msg: str = "") -> None:
@@ -234,6 +267,45 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 20, warmup: int = 3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def sleep_ms(fn, flush: torch.Tensor, reps: int = 20, warmup: int = 3,
+             spin_cycles: int = 2_000_000):
+    """Median device time of ``fn`` as :func:`time_ms` takes it, but with
+    each launch queued behind a device spin (``torch.cuda._sleep``, about
+    1 ms) after the L2 flush: the host enqueues the start event, ``fn``'s
+    launches and the end event while the card spins, so the wrapper's
+    Python does not leak into a short kernel's time."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(spin_cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def timings(flush: torch.Tensor, **fns) -> dict:
+    """``{name}_ms`` by :func:`time_ms` and ``{name}_sleep_ms`` by
+    :func:`sleep_ms` for each ``name=fn``."""
+    out = {}
+    for name, fn in fns.items():
+        out[f"{name}_ms"] = time_ms(fn, flush)
+        out[f"{name}_sleep_ms"] = sleep_ms(fn, flush)
+    return out
+
+
+def _sleep_timer(row: dict, scale: float = 1.0) -> dict:
+    """A kernels-line row's readings under the sleep timer."""
+    return {k.replace("_sleep_ms", "_ms").replace("kernel_ms", "ms"):
+            scale * v for k, v in row.items() if k.endswith("_sleep_ms")}
 
 
 def phase_device():
@@ -320,9 +392,9 @@ def phase_kernels():
             bound, by = _bound(4 * (m * k + n * k + m * n), 2 * m * n * k)
             row = {
                 "site": label, "M": m, "N": n, "K": k,
-                "kernel_ms": time_ms(lambda: chunked_matmul(x, w), flush),
-                "plain_ms": time_ms(lambda: ref.chunked_matmul(x, w), flush),
-                "library_ms": time_ms(lambda: torch.matmul(x, w.T), flush),
+                **timings(flush, kernel=lambda: chunked_matmul(x, w),
+                          plain=lambda: ref.chunked_matmul(x, w),
+                          library=lambda: torch.matmul(x, w.T)),
                 "bound_ms": bound, "bound_by": by, "max_abs_err": err,
                 "plan": f"{plan.regime} tile {plan.tile} splits "
                         f"{plan.splits} ({plan.blocks} blocks)",
@@ -341,7 +413,8 @@ def phase_kernels():
         step = {key: sum(r[key] * STEP_COUNTS[r["site"]] for r in rows
                          if r["M"] == m)
                 for key in ("kernel_ms", "plain_ms", "library_ms",
-                            "bound_ms")}
+                            "bound_ms", "kernel_sleep_ms", "plain_sleep_ms",
+                            "library_sleep_ms")}
         step["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
                                            for r in rows if r["M"] == m)
                             else "operations")
@@ -351,7 +424,9 @@ def phase_kernels():
             f"{step['plain_ms']:.3f} ms, library {step['library_ms']:.3f} ms,"
             f" bound {step['bound_ms']:.3f} ms ({step['bound_by']}); kernel "
             f"/ library {step['kernel_ms'] / step['library_ms']:.3f}, bound "
-            f"/ kernel {step['bound_ms'] / step['kernel_ms']:.3f}")
+            f"/ kernel {step['bound_ms'] / step['kernel_ms']:.3f}; sleep "
+            f"timer: kernel {step['kernel_sleep_ms']:.3f} ms, library "
+            f"{step['library_sleep_ms']:.3f} ms")
     worst = {m: max(r["kernel_ms"] / r["library_ms"] for r in rows
                     if r["M"] == m) for m in MAIN_M}
     log(f"worst single shape, kernel / library: "
@@ -443,9 +518,7 @@ def phase_attention_kernels(flush):
         e = check(name, got, want, torch.float32)
         bound, by = _bound(nbytes, flops, rate)
         r = {"kernel": name, "shape": shape, "plan": plan,
-             "kernel_ms": time_ms(kernel, flush),
-             "plain_ms": time_ms(plain, flush),
-             "library_ms": time_ms(library, flush),
+             **timings(flush, kernel=kernel, plain=plain, library=library),
              "bound_ms": bound, "bound_by": by, "max_abs_err": e,
              "library_err": (lib.float() - want.float()).abs().max().item()}
         extra = ""
@@ -453,7 +526,8 @@ def phase_attention_kernels(flush):
             r["bound_f32_fma_ms"] = _bound(nbytes, flops)[0]
             extra = f" (f32 FMA {r['bound_f32_fma_ms'] * 1e3:.3f} us)"
         rows.append(r)
-        log(f"  {name} {shape:24s} kernel {r['kernel_ms']:.4f} ms  plain "
+        log(f"  {name} {shape:24s} kernel {r['kernel_ms']:.4f} ms (sleep "
+            f"timer {r['kernel_sleep_ms']:.4f})  plain "
             f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
             f"bound {bound * 1e3:.3f} us ({by}){extra}  max|err| {e:.2e}  "
             f"library max|err| {r['library_err']:.2e}  plan: {plan}")
@@ -545,7 +619,9 @@ def phase_attention_kernels(flush):
             f"{N_LAYERS * r['kernel_ms']:.3f} ms, plain "
             f"{N_LAYERS * r['plain_ms']:.3f} ms, library "
             f"{N_LAYERS * r['library_ms']:.3f} ms, bound "
-            f"{N_LAYERS * r['bound_ms']:.3f} ms")
+            f"{N_LAYERS * r['bound_ms']:.3f} ms; sleep timer: kernel "
+            f"{N_LAYERS * r['kernel_sleep_ms']:.3f} ms, library "
+            f"{N_LAYERS * r['library_sleep_ms']:.3f} ms")
     return rows, step, err
 
 
@@ -579,11 +655,10 @@ def phase_col_kernels(flush):
             bound, by = _bound(4 * (m * K + n * K + m * n), 2 * m * n * K)
             row = {
                 "site": label, "M": m, "H": H, "K": K, "Nh": Nh,
-                "kernel_ms": time_ms(
-                    lambda: chunked_matmul(x, w, layout="col"), flush),
-                "plain_ms": time_ms(
-                    lambda: ref.chunked_matmul(x, w, "col"), flush),
-                "library_ms": time_ms(lambda: torch.matmul(x, w), flush),
+                **timings(flush,
+                          kernel=lambda: chunked_matmul(x, w, layout="col"),
+                          plain=lambda: ref.chunked_matmul(x, w, "col"),
+                          library=lambda: torch.matmul(x, w)),
                 "bound_ms": bound, "bound_by": by, "max_abs_err": err,
                 "plan": f"{plan.regime} tile {plan.tile} splits "
                         f"{plan.splits} ({plan.blocks} blocks)"}
@@ -599,7 +674,8 @@ def phase_col_kernels(flush):
         step = {key: sum(r[key] * COL_COUNTS[r["site"]] for r in rows
                          if r["M"] == m)
                 for key in ("kernel_ms", "plain_ms", "library_ms",
-                            "bound_ms")}
+                            "bound_ms", "kernel_sleep_ms", "plain_sleep_ms",
+                            "library_sleep_ms")}
         step["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
                                            for r in rows if r["M"] == m)
                             else "operations")
@@ -607,7 +683,9 @@ def phase_col_kernels(flush):
         log(f"one {what}'s {sum(COL_COUNTS.values())} column-layout GEMMs "
             f"at M={m}: kernel {step['kernel_ms']:.3f} ms, plain "
             f"{step['plain_ms']:.3f} ms, library {step['library_ms']:.3f} ms,"
-            f" bound {step['bound_ms']:.3f} ms ({step['bound_by']})")
+            f" bound {step['bound_ms']:.3f} ms ({step['bound_by']}); sleep "
+            f"timer: kernel {step['kernel_sleep_ms']:.3f} ms, library "
+            f"{step['library_sleep_ms']:.3f} ms")
     return steps, max_err
 
 
@@ -668,15 +746,13 @@ def phase_shard_kernels(flush):
                 row = {
                     "site": label, "N": n, "M": m, "K": ks, "out": ns,
                     "w_row_stride": ws.stride(-2),
-                    "kernel_ms": time_ms(
-                        lambda: chunked_matmul(xs, ws, **kw), flush),
-                    "contiguous_ms": time_ms(
-                        lambda: chunked_matmul(xs, wc, **kw), flush),
-                    "plain_ms": time_ms(
-                        lambda: ref.chunked_matmul(
+                    **timings(
+                        flush,
+                        kernel=lambda: chunked_matmul(xs, ws, **kw),
+                        contiguous=lambda: chunked_matmul(xs, wc, **kw),
+                        plain=lambda: ref.chunked_matmul(
                             xs, ws, "row" if layout == "row" else "col"),
-                        flush),
-                    "library_ms": time_ms(lib, flush),
+                        library=lib),
                     "bound_ms": bound, "bound_by": by}
                 rows.append(row)
                 log(f"  {label:11s} N={n} M={m:3d} shard K={ks:5d} out="
@@ -697,7 +773,9 @@ def phase_shard_kernels(flush):
             step = {key: sum(n * SHARD_SITES[r["site"]][2] * r[key]
                              for r in sel)
                     for key in ("kernel_ms", "contiguous_ms", "plain_ms",
-                                "library_ms", "bound_ms")}
+                                "library_ms", "bound_ms", "kernel_sleep_ms",
+                                "contiguous_sleep_ms", "plain_sleep_ms",
+                                "library_sleep_ms")}
             step["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes"
                                                for r in sel) else
                                 "operations")
@@ -708,7 +786,10 @@ def phase_shard_kernels(flush):
                 f"(contiguous copies {step['contiguous_ms']:.3f}), plain "
                 f"{step['plain_ms']:.3f} ms, library "
                 f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} "
-                f"ms ({step['bound_by']})")
+                f"ms ({step['bound_by']}); sleep timer: kernel "
+                f"{step['kernel_sleep_ms']:.3f} ms (contiguous "
+                f"{step['contiguous_sleep_ms']:.3f}), library "
+                f"{step['library_sleep_ms']:.3f} ms")
     return steps, max_err
 
 
@@ -726,19 +807,21 @@ def phase_quant_k1(flush):
     n, k, cs = 14336, 4096, 64
     w = torch.randn(n, k // cs, cs, generator=gen, device=dev) * k ** -0.5
     x = torch.randn(1, k, generator=gen, device=dev)
-    f32 = time_ms(lambda: chunked_matmul(x, w.view(n, k)), flush)
-    log(f"  W1 {n}x{k} M=1 f32 table: K1 {f32:.4f} ms")
-    out = {"f32_ms": f32}
+    out = timings(flush, f32=lambda: chunked_matmul(x, w.view(n, k)))
+    f32 = out["f32_ms"]
+    log(f"  W1 {n}x{k} M=1 f32 table: K1 {f32:.4f} ms (sleep timer "
+        f"{out['f32_sleep_ms']:.4f})")
     for name in ("int8", "nf4"):
         codec = CODECS[name]
         codes, scales = codec.quantise(w)
-        deq = time_ms(lambda: codec.dequantise(codes, scales), flush)
-        both = time_ms(lambda: chunked_matmul(
-            x, codec.dequantise(codes, scales).view(n, k)), flush)
+        t = timings(flush,
+                    dequant=lambda: codec.dequantise(codes, scales),
+                    dequant_and_k1=lambda: chunked_matmul(
+                        x, codec.dequantise(codes, scales).view(n, k)))
+        deq, both = t["dequant_ms"], t["dequant_and_k1_ms"]
         err = (chunked_matmul(x, codec.dequantise(codes, scales).view(n, k))
                - chunked_matmul(x, w.view(n, k))).abs().max().item()
-        out[name] = {"dequant_ms": deq, "dequant_and_k1_ms": both,
-                     "max_abs_err_vs_f32": err}
+        out[name] = {**t, "max_abs_err_vs_f32": err}
         log(f"  W1 {name}: dequantise {deq:.4f} ms, dequantise + K1 "
             f"{both:.4f} ms ({both / f32:.2f}x the f32 table's K1); "
             f"max|Δ| against f32 {err:.3e}")
@@ -818,16 +901,15 @@ def phase_cache_layout_attention(flush):
             err = (got - want).abs().max().item()
             bound, by = _bound(c["bytes"], c["flops"], c["rate"])
             r = {"shape": c["shape"], "max_abs_err": err,
-                 "kernel_ms": time_ms(c["kernel"], flush),
-                 "plain_ms": time_ms(c["plain"], flush),
-                 "library_ms": time_ms(c["library"], flush),
+                 **timings(flush, kernel=c["kernel"], plain=c["plain"],
+                           library=c["library"]),
                  "bound_ms": bound, "bound_by": by}
             if layout == "pos_major":
                 # the executor's gather of K and V before each launch, timed
                 # apart from the kernel (which reads the gathered copies)
-                r["gather_ms"] = time_ms(
-                    lambda: (rows(ck), rows(cv)) if name ==
-                    "paged_attention" else (heads(ck), heads(cv)), flush)
+                r.update(timings(flush, gather=lambda: (
+                    (rows(ck), rows(cv)) if name == "paged_attention"
+                    else (heads(ck), heads(cv)))))
             out[(name, layout)] = r
             log(f"  {name} {layout:10s} {c['shape']:24s} kernel "
                 f"{r['kernel_ms']:.4f} ms"
@@ -835,7 +917,9 @@ def phase_cache_layout_attention(flush):
                    if "gather_ms" in r else "")
                 + f"  plain {r['plain_ms']:.4f} ms  library "
                 f"{r['library_ms']:.4f} ms  bound {bound * 1e3:.3f} us "
-                f"({by})  max|err| {err:.2e}")
+                f"({by})  max|err| {err:.2e}; sleep timer: kernel "
+                f"{r['kernel_sleep_ms']:.4f} ms, library "
+                f"{r['library_sleep_ms']:.4f} ms")
         del ck, cv, kr, vr, hk, hv, dense_k, dense_v
     return out
 
@@ -2826,6 +2910,203 @@ def phase_distributed(train_summary: dict) -> dict:
     return out
 
 
+def _dryrun_cells() -> dict:
+    """(a) The dry-run's cells, one subprocess each, run together; each
+    must exit 0.  Prints the roofline table and each cell's host seconds."""
+    from repro_torch.analysis.roofline import format_table
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argvs = [["-m", "repro_torch.launch.dryrun", *cell, "--out",
+              str(DRYRUN_DIR / f"cells{i}.jsonl")]
+             for i, cell in enumerate(DRYRUN_CELLS)]
+    argvs.append(["-m", "repro_torch.launch.hillclimb", DRYRUN_HILLCLIMB])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=DRYRUN_DIR,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for argv, p, out in zip(argvs, procs, outs):
+        shown = argv[:-2] if argv[-2] == "--out" else argv
+        log(f"  $ python {' '.join(shown)} -> exit {p.returncode}")
+        for line in out.splitlines():
+            if line.startswith(("[OK]", "[FAIL]", "     roofline",
+                                "     cost", "dry-run complete")):
+                log(f"    {line.strip()}")
+        assert p.returncode == 0, out[-4000:]
+    recs = [json.loads(line) for f in sorted(DRYRUN_DIR.rglob("*.jsonl"))
+            for line in f.read_text().splitlines()]
+    for r in recs:
+        log(f"  {r['arch']} x {r['shape']} x {r['mesh']}"
+            f"{' [' + r['tag'] + ']' if r.get('tag') else ''}: "
+            f"{r['status']}" + (f", host {r['compile_seconds']:.2f} s, "
+                                f"memory {r['memory_analysis']}"
+                                if r["status"] == "ok" else
+                                f" ({r.get('reason') or r.get('error')})"))
+    status = {(r["arch"], r["shape"], r["mesh"], r.get("tag", "")):
+              r["status"] for r in recs}
+    assert status == {
+        ("olmo-1b", "decode_32k", "16x16", ""): "ok",
+        ("olmo-1b", "decode_32k", "2x16x16", ""): "ok",
+        ("olmoe-1b-7b", "prefill_32k", "16x16", ""): "ok",
+        ("olmo-1b", "long_500k", "16x16", ""): "skipped",
+        ("olmoe-1b-7b", "prefill_32k", "16x16", DRYRUN_HILLCLIMB): "ok"}, \
+        status
+    ok = [r for r in recs if r["status"] == "ok"]
+    log(format_table([r["roofline"] for r in ok]))
+    log(f"(a) {len(argvs)} dry-run subprocesses in {wall:.1f} s (H100 "
+        f"roofline: {PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+        f"{HBM_BW / 1e12} TB/s, NVLink 450 GB/s each way)")
+    return {"wall_s": wall, "cells": {
+        f"{r['arch']} x {r['shape']} x {r['mesh']}"
+        f"{' ' + r['tag'] if r.get('tag') else ''}":
+        ({"roofline": r["roofline"], "host_s": r["compile_seconds"],
+          "memory_analysis": r["memory_analysis"]}
+         if r["status"] == "ok" else r["status"]) for r in recs}}
+
+
+def _materialize(cell, vocab: int, gen):
+    """Real tensors on the card for a cell's meta arguments: parameters
+    N(0, 0.02²), token ids uniform over the vocabulary, caches, optimizer
+    state and AdamW's step zero; decode's position the cache's last row,
+    as the dry-run passes it."""
+    from repro_torch.launch import dryrun, specs
+    dev = torch.device("cuda")
+
+    def param(t):
+        return (torch.randn(t.shape, generator=gen, device=dev,
+                            dtype=torch.float32) * 0.02).to(t.dtype)
+
+    def other(t):
+        if t.is_floating_point() or t.ndim == 0:
+            return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+        return torch.randint(0, vocab, t.shape, generator=gen, device=dev,
+                             dtype=t.dtype)
+    args = (dryrun._map(param, cell.args[0]),) + tuple(
+        dryrun._map(other, a) for a in cell.args[1:])
+    if cell.kind == "decode":
+        args = args[:-1] + (specs.SHAPES[cell.shape_name]["seq_len"] - 1,)
+    return args
+
+
+def _roofline_cell(shape: str, batch: int) -> dict:
+    """One cell of olmo-1b at full width and depth on the card with
+    ``global_batch`` cut to ``batch``: counted once by the dry-run's
+    counters, then timed (median CUDA-event wall of ROOFLINE_STEPS steps
+    after ROOFLINE_WARMUP) against the H100 roofline of its count."""
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    cfg = get_config("olmo-1b")
+    info = dict(specs.SHAPES[shape], global_batch=batch)
+    with mock.patch.dict(specs.SHAPES, {shape: info}):
+        cell = specs.build_cell(cfg, shape)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    args = _materialize(cell, cfg.vocab, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with dryrun.StepCounter() as counter:
+        cell.step_fn(*args)
+        torch.cuda.synchronize()
+    walls = []
+    for i in range(ROOFLINE_WARMUP + ROOFLINE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cell.step_fn(*args)
+        end.record()
+        end.synchronize()
+        if i >= ROOFLINE_WARMUP:
+            walls.append(start.elapsed_time(end))
+    measured = statistics.median(walls)
+    t_compute = counter.flops / PEAK_FLOPS * 1e3
+    t_memory = counter.bytes / HBM_BW * 1e3
+    bound = max(t_compute, t_memory)
+    n_bytes = {"params": sum(t.numel() * t.element_size()
+                             for t in dryrun._tensors(args[0])),
+               "caches": sum(t.numel() * t.element_size()
+                             for t in dryrun._tensors(args[2]))
+               if cell.kind == "decode" else 0}
+    out = {"shape": shape, "global_batch": batch,
+           "global_batch_published": specs.SHAPES[shape]["global_batch"],
+           "seq_len": info["seq_len"], "flops": counter.flops,
+           "bytes": counter.bytes, "t_compute_ms": t_compute,
+           "t_memory_ms": t_memory, "bound_ms": bound,
+           "bound_by": "operations" if t_compute >= t_memory else "bytes",
+           "measured_ms": measured, "walls_ms": walls,
+           "bound_over_measured": bound / measured,
+           "collectives": len(counter.records),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **{f"{k}_bytes": v for k, v in n_bytes.items()}}
+    del args, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_roofline() -> dict:
+    """Phase 13: (a) the dry-run's cells in subprocesses; (b) olmo-1b's
+    decode_32k and train_4k on the card against the roofline of the
+    dry-run's own count.  Launches none of K1-K3."""
+    from repro_torch import kernels
+    log("== phase 13: the dry-run (production meshes, fake process groups, "
+        "subprocesses) and the roofline held against the card")
+    wrappers = [getattr(kernels, name) for name in KERNELS]
+    for fn in wrappers:
+        fn.launches = fn.calls = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"dryrun": _dryrun_cells()}
+    log(f"(b) olmo-1b at full width and depth (16 layers, d 2048, 16 heads, "
+        f"bf16) at world size 1; median CUDA-event wall of {ROOFLINE_STEPS} "
+        f"steps after {ROOFLINE_WARMUP}")
+    cells = [_roofline_cell("decode_32k", ROOFLINE_DECODE_BATCH)]
+    for batch in ROOFLINE_TRAIN_BATCHES:
+        try:
+            cells.append(_roofline_cell("train_4k", batch))
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"  train_4k at global_batch {batch}: out of memory, cut "
+                f"further")
+        # the failed attempt's tensors die with the exception, here
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError("train_4k fits at no global_batch of "
+                             f"{ROOFLINE_TRAIN_BATCHES}")
+    for c in cells:
+        log(f"  {c['shape']}: global_batch cut {c['global_batch_published']}"
+            f" -> {c['global_batch']} (seq {c['seq_len']}); counted "
+            f"{c['flops']:.6e} FLOPs, {c['bytes']:.6e} bytes; t_compute "
+            f"{c['t_compute_ms']:.4f} ms, t_memory {c['t_memory_ms']:.4f} "
+            f"ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']}); measured "
+            f"{c['measured_ms']:.4f} ms (min {min(c['walls_ms']):.4f}, max "
+            f"{max(c['walls_ms']):.4f}); bound / measured "
+            f"{c['bound_over_measured']:.4f}; max memory allocated "
+            f"{c['max_memory_allocated'] / 1e9:.2f} GB")
+        assert c["measured_ms"] >= c["bound_ms"], \
+            f"{c['shape']}: measured under the bound: the counters undercount"
+        assert c["collectives"] == 0, c
+    dec = cells[0]
+    assert dec["bytes"] >= dec["params_bytes"] + dec["caches_bytes"], dec
+    log(f"  decode counted bytes {dec['bytes']:.6e} >= parameters "
+        f"{dec['params_bytes']:.6e} + caches {dec['caches_bytes']:.6e}")
+    out["roofline"] = cells
+    launched = {name: fn.launches for name, fn in zip(KERNELS, wrappers)}
+    assert not any(launched.values()), launched
+    log(f"K1-K3 launches in phase 13: {launched} (the dry-run and the model "
+        f"stack run none)")
+    return out
+
+
 def _compile_logged(eng, label, compile_fn, *args):
     """Compile one plan through the engine's cache and print its compile
     time and decisions."""
@@ -3116,6 +3397,7 @@ def main() -> int:
                            paged_summary["h2d_bytes_per_s"])
     train_summary = timed("phase 11", phase_train)
     dist_summary = timed("phase 12", phase_distributed, train_summary)
+    roofline_summary = timed("phase 13", phase_roofline)
     # each main path's counts, zeroed just before it and read just after:
     # phase 5's cold serving, phase 6's prefix-cached serving per bind mode,
     # phase 7's paged serving, phase 8's sharded serving and phase 9's HTTP
@@ -3149,6 +3431,9 @@ def main() -> int:
         "prefill_library_ms": prefill["library_ms"],
         "prefill_bound_ms": prefill["bound_ms"],
         "quantised_w1_m1": quant_k1,
+        "sleep_timer": {**_sleep_timer(step),
+                        "prefill_ms": prefill["kernel_sleep_ms"],
+                        "prefill_library_ms": prefill["library_sleep_ms"]},
         "times_are": f"one decode step's {sum(STEP_COUNTS.values())} GEMMs "
                      f"at M=1 (prefill_*: one {PREFILL_M}-token prefill's), "
                      f"summed from per-shape medians"}]
@@ -3168,6 +3453,7 @@ def main() -> int:
             **({"bound_f32_fma_ms": N_LAYERS * r["bound_f32_fma_ms"]}
                if "bound_f32_fma_ms" in r else {}),
             "plan": r["plan"],
+            "sleep_timer": _sleep_timer(r, N_LAYERS),
             "times_are": f"{what}'s {N_LAYERS} launches at {r['shape']}, "
                          f"{N_LAYERS} x the per-launch median"})
     r = attn_step["suffix"]
@@ -3176,6 +3462,7 @@ def main() -> int:
         "ms": N_LAYERS * r["kernel_ms"], "plain_ms": N_LAYERS * r["plain_ms"],
         "library_ms": N_LAYERS * r["library_ms"],
         "bound_ms": N_LAYERS * r["bound_ms"], "bound_by": r["bound_by"],
+        "sleep_timer": _sleep_timer(r, N_LAYERS),
         "times_are": f"one suffix prefill's {N_LAYERS} launches, q_offset "
                      f"{SUFFIX_STEP[1]}; library: SDPA with the boolean "
                      f"offset mask"}
@@ -3197,6 +3484,10 @@ def main() -> int:
         "prefill_ms": col_steps[PREFILL_M]["kernel_ms"],
         "prefill_library_ms": col_steps[PREFILL_M]["library_ms"],
         "prefill_bound_ms": col_steps[PREFILL_M]["bound_ms"],
+        "sleep_timer": {
+            **_sleep_timer(col),
+            "decode_m4_ms": col_steps[4]["kernel_sleep_ms"],
+            "prefill_ms": col_steps[PREFILL_M]["kernel_sleep_ms"]},
         "times_are": f"one decode step's {sum(COL_COUNTS.values())} "
                      f"column-layout GEMMs (Q COLH, o, W1, W3 a layer, "
                      f"lm_head) at M=1 (decode_m4_*: M=4, prefill_*: "
@@ -3223,6 +3514,7 @@ def main() -> int:
                 "bound_by": r["bound_by"],
                 "library_ms": N_LAYERS * r["library_ms"],
                 **{lay: scaled(cache_rows[(name, lay)]) for lay in others},
+                "sleep_timer": _sleep_timer(r, N_LAYERS),
                 "times_are": f"{N_LAYERS} launches at {r['shape']} over "
                              f"{cache_layout} caches, {N_LAYERS} x the "
                              f"per-launch median"})
@@ -3246,6 +3538,8 @@ def main() -> int:
             "prefill_library_ms": pre["library_ms"],
             "prefill_bound_ms": pre["bound_ms"],
             "prefill_contiguous_ms": pre["contiguous_ms"],
+            "sleep_timer": {**_sleep_timer(r),
+                            "prefill_ms": pre["kernel_sleep_ms"]},
             "times_are": f"one decode step's 225 sharded GEMMs at M=1, "
                          f"{n} launches a site on the strided slices the "
                          f"workers pass (contiguous_ms: on contiguous copies "
@@ -3257,6 +3551,7 @@ def main() -> int:
     log(f"phase 10 (direct): {json.dumps(direct_summary)}")
     log(f"phase 11 (train): {json.dumps(train_summary)}")
     log(f"phase 12 (distributed): {json.dumps(dist_summary)}")
+    log(f"phase 13 (dry-run, roofline): {json.dumps(roofline_summary)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -157,3 +157,18 @@ class ChunkedTensor:
         )
         return cls(schema=schema, data=data)
 
+    def insert_sql(self, limit: int | None = None) -> str:
+        """INSERT statements for the chunk rows (paper §3.1 data conversion)."""
+        data = self.data.detach().to("cpu", torch.float32).numpy()
+        key_sizes = [s for _, s in self.schema.key_cols]
+        stmts = []
+        for n, idx in enumerate(np.ndindex(*key_sizes)):
+            if limit is not None and n >= limit:
+                break
+            vec = ", ".join(f"{v:.6g}" for v in data[idx])
+            keys = ", ".join(str(i) for i in idx)
+            stmts.append(
+                f"INSERT INTO {self.schema.name} VALUES ({keys}, [{vec}]);"
+            )
+        return "\n".join(stmts)
+

@@ -230,16 +230,39 @@ def placements(spec: Sequence, mesh: DeviceMesh) -> Tuple[Placement, ...]:
     return tuple(out)
 
 
+class _GradLaidOut(torch.autograd.Function):
+    """The identity on a DTensor whose gradient is redistributed to the
+    DTensor's own placements (a pending partial sum reduced), as the
+    reference's ``with_sharding_constraint`` constrains the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == tuple(ctx.placements):
+            return g
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     """Apply a logical-axis sharding constraint: ``redistribute`` a DTensor
     to the placements of its logical axes; the identity without a mesh or
-    on a plain tensor."""
+    on a plain tensor.  The gradient is laid out the same way before it
+    flows back, as JAX transposes the constraint: DTensor cannot turn a
+    partial gradient into the row-sharded embedding's masked partial, nor
+    unflatten a gradient sharded unevenly over the heads."""
     ctx = getattr(_state, "ctx", None)
     if ctx is None or ctx[0] is None or not isinstance(x, DTensor):
         return x
     mesh, _ = ctx
     spec = logical_spec_for_shape(x.shape, *logical)
-    return x.redistribute(mesh, placements(spec, mesh))
+    out = x.redistribute(mesh, placements(spec, mesh))
+    if x.requires_grad:
+        out = _GradLaidOut.apply(out)
+    return out
 
 
 def gather_fsdp(tree):

@@ -95,12 +95,20 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``to_local`` → this function → ``DTensor.from_local``).  DTensor's own
     ``bmm`` strategy would see the batch and head shards flattened into one
     strided batch dim, whose redistribution planning grows with the mesh.
+    K and V replicated on a mesh dim that shards the query's batch or heads
+    (a cache placed by batch only, or gathered) are sliced the same way
+    there, a local split with no communication, when their dim divides by
+    it.
     """
     if isinstance(q, DTensor):
         mesh = q.device_mesh
-        pl = tuple(p if (p.is_shard(0) and k.placements[i].is_shard(0))
-                   or (p.is_shard(2) and k.placements[i].is_shard(2))
-                   else Replicate()
+
+        def kept(i, p):
+            kp = k.placements[i]
+            return any(p.is_shard(d) and (kp.is_shard(d) or (
+                kp.is_replicate() and k.shape[d] % mesh.size(i) == 0))
+                for d in (0, 2))
+        pl = tuple(p if kept(i, p) else Replicate()
                    for i, p in enumerate(q.placements))
         ql, kl, vl = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
         out = _sdpa(ql, kl, vl, mask, kl.shape[2])
@@ -272,17 +280,59 @@ def mla_apply(
     kvb = torch.einsum("bsr,rhk->bshk", c_kv, p["wkv_b"])
     k_nope, v = kvb[..., :dn], kvb[..., dn:]
 
+    mask = make_mask(q_pos, kv_pos, causal=True, kv_valid=kv_valid)
+    out = _mla_core(q_nope, q_pe, k_nope, k_pe, v, mask)
+    return _out_proj(out, p["wo"]), cache
+
+
+def _mla_core(q_nope: torch.Tensor, q_pe: torch.Tensor, k_nope: torch.Tensor,
+              k_pe: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
+              ) -> torch.Tensor:
+    """MLA's attention over the decompressed keys: q_nope, q_pe [B,T,H,*],
+    k_nope, v [B,S,H,*], the rotary key k_pe [B,S,dr] shared by the heads,
+    mask [T,S] additive (f32).
+
+    On DTensors it runs per shard, as :func:`_sdpa` does and for its
+    reason: the batch and head shards are kept where the keys have them
+    (or are replicated there and divide), the shared rotary key keeps the
+    batch shards only."""
+    if isinstance(q_nope, DTensor):
+        mesh = q_nope.device_mesh
+
+        def kept(i, p):
+            kp = k_nope.placements[i]
+            return any(p.is_shard(d) and (kp.is_shard(d) or (
+                kp.is_replicate() and k_nope.shape[d] % mesh.size(i) == 0))
+                for d in (0, 2))
+        pl = tuple(p if kept(i, p) else Replicate()
+                   for i, p in enumerate(q_nope.placements))
+        pl_pe = tuple(p if p.is_shard(0) else Replicate() for p in pl)
+
+        def local(t, placements, grad_placements=None):
+            if not isinstance(t, DTensor):
+                t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False)
+            return t.redistribute(mesh, placements).to_local(
+                grad_placements=grad_placements)
+        # the shared key's gradient is summed over the head shards
+        pe_grad = [Partial() if p.is_shard(2) else q
+                   for p, q in zip(pl, pl_pe)]
+        out = _mla_core(*(local(t, pl) for t in (q_nope, q_pe, k_nope)),
+                        local(k_pe, pl_pe, pe_grad), local(v, pl),
+                        mask).contiguous()  # the strides given below
+        B, T, H, dv = q_nope.shape[:3] + v.shape[-1:]
+        return DTensor.from_local(out, mesh, pl, run_check=False,
+                                  shape=(B, T, H, dv),
+                                  stride=(T * H * dv, H * dv, dv, 1))
+    dn, dr = q_nope.shape[-1], q_pe.shape[-1]
     # a 0-d host tensor: the reference's scalar, with no copy to the card
     scale = 1.0 / torch.tensor(dn + dr, dtype=torch.float32).sqrt().to(
-        x.dtype)
+        q_nope.dtype)
     scores = (torch.einsum("bthk,bshk->bhts", q_nope, k_nope)
               + torch.einsum("bthk,bsk->bhts", q_pe, k_pe)) * scale
-    mask = make_mask(q_pos, kv_pos, causal=True, kv_valid=kv_valid)
     scores = scores.float() + mask
-    pr = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhts,bshk->bthk", pr, v)
-    y = torch.einsum("bthd,hdD->btD", out, p["wo"])
-    return y, cache
+    pr = torch.softmax(scores, dim=-1).to(q_nope.dtype)
+    return torch.einsum("bhts,bshk->bthk", pr, v)
 
 
 def empty_cache(cfg: ModelConfig, batch: int, max_len: int,

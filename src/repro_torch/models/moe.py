@@ -57,6 +57,21 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8, as the reference tiles
 
 
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim; a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in ``[0, n)``, with a
+    shape that does not depend on the data (a dry-run counts it on fake
+    tensors)."""
+    return torch.zeros(n, dtype=torch.long, device=ids.device).index_add(
+        0, ids, torch.ones_like(ids))
+
+
 def top_k(probs: torch.Tensor, k: int):
     """``jax.lax.top_k``: the k largest along the last dim, ties toward the
     lower index (a stable descending sort)."""
@@ -78,13 +93,17 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gates = gates.to(x.dtype)
 
     # ---- sort-based dispatch ------------------------------------------------
-    flat_e = idx.reshape(-1)                                   # [N*K]
+    # one global sort over every token, as the reference's: on a mesh the
+    # routing and the tokens are replicated first (all-gathers), so each
+    # index op below runs on whole tensors on every rank
+    flat_e = _replicated(idx.reshape(-1))                      # [N*K]
     flat_t = torch.arange(N, device=x.device).repeat_interleave(K)
-    flat_g = gates.reshape(-1)
+    flat_g = _replicated(gates.reshape(-1))
+    xf_all = _replicated(xf)
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
 
-    counts = torch.bincount(flat_e, minlength=E)               # per expert
+    counts = _counts(flat_e, E)                                # per expert
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(N * K, device=x.device) - starts[se]    # slot
     C = capacity(N, cfg)
@@ -92,9 +111,8 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     pos_c = torch.where(keep, pos, 0)
 
     buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
-    buf.index_put_((se, pos_c),
-                   torch.where(keep[:, None], xf[st], 0).to(x.dtype),
-                   accumulate=True)
+    rows = torch.where(keep[:, None], xf_all[st], 0).to(x.dtype)
+    buf = buf.index_put((se, pos_c), rows, accumulate=True)
     buf = shard(buf, "expert", None, None)
 
     # ---- batched expert FFN (SwiGLU) ---------------------------------------
@@ -103,10 +121,11 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = shard(h, "expert", None, None)
     out_buf = torch.einsum("ecf,efd->ecd", h, p["w2"])
 
-    # ---- combine -------------------------------------------------------------
-    y = torch.zeros((N, D), dtype=x.dtype, device=x.device)
+    # ---- combine (the expert buffer gathered whole on a mesh) ---------------
+    out_buf = _replicated(out_buf)
     contrib = out_buf[se, pos_c] * (sg * keep.to(sg.dtype))[:, None]
-    y.index_add_(0, st, contrib)
+    y = torch.zeros((N, D), dtype=x.dtype, device=x.device).index_add(
+        0, st, contrib)
 
     if "shared" in p:
         y = y + mlp_apply(p["shared"], xf, cfg)
@@ -181,7 +200,7 @@ def moe_apply_ep_local(p: Dict, x: torch.Tensor, cfg: ModelConfig
     local_e = torch.where(mine, flat_e % E_loc, E_loc)  # E_loc = drop row
     order = torch.argsort(local_e, stable=True)
     se, st, sg = local_e[order], flat_t[order], flat_g[order]
-    counts = torch.bincount(local_e, minlength=E_loc + 1)
+    counts = _counts(local_e, E_loc + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(Nl * K, device=xl.device) - starts[
         torch.clamp(se, max=E_loc)]

@@ -7,7 +7,7 @@ Python loop over that axis on views of the stacked parameters and caches
 (the reference's ``lax.scan``).  Heterogeneous stacks (deepseek
 dense-prefix, vlm cross-attn interleave) become several groups.  Per-layer
 scalars that vary inside a group (hymba's sliding-window schedule) ride
-along as a per-layer array instead of splitting the group.
+along as a per-layer list of host ints instead of splitting the group.
 
 Caches are written in place (the reference donates them to ``jit``):
 ``prefill`` and ``decode_step`` return the cache tree they were given.
@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -91,6 +92,8 @@ def _unbind(tree, n: int) -> List:
     indexing each layer would add a full-size zero gradient a layer."""
     if tree is None:
         return [None] * n
+    if isinstance(tree, list):  # per-layer host values
+        return tree
     layers = tree_map(lambda a: torch.unbind(a, 0), tree)
     return [tree_map(lambda ls: ls[i], layers) for i in range(n)]
 
@@ -263,8 +266,9 @@ def block_apply(
                 new_ssm = {"ssm": final,
                            "conv": _ssm_tail(p["ssm"], h, cfg, sc["conv"])}
         # hymba: mean-fuse the two heads' outputs after per-branch norm
+        s = shard(s, "batch", "seq", None)  # reduced before the norm
         y = 0.5 * (a + norm_apply(p["ln_ssm"], s, cfg))
-        x = x + y
+        x = shard(x + y, "batch", "seq", None)
         h2 = norm_apply(p["ln2"], x, cfg)
         x = x + mlp_apply(p["mlp"], h2, cfg)
         new_cache = None
@@ -283,13 +287,16 @@ def block_apply(
                                       cache=cache, cache_pos=cache_pos,
                                       kv_valid=kv_valid, causal=causal,
                                       window=window, rope_cs=rope_cs)
-    x = x + a
+    # the residual stream laid out as between layers: on a mesh, a pending
+    # partial sum (the output projection's) is reduced here, where DTensor
+    # would otherwise reduce-scatter it over the sequence for the norm
+    x = shard(x + a, "batch", "seq", None)
 
     if kind == "encdec_dec":
         h = norm_apply(p["ln_x"], x, cfg)
         c, new_aux_cache = _cross_from_cache(p["xattn"], h, cfg, q_pos,
                                              aux, aux_cache)
-        x = x + c
+        x = shard(x + c, "batch", "seq", None)
 
     h = norm_apply(p["ln2"], x, cfg)
     if kind in ("moe", "mla_moe"):
@@ -313,7 +320,7 @@ def _cross_from_cache(pa, h, cfg, q_pos, aux, aux_cache):
         mask = torch.zeros((T, k.shape[1]), dtype=torch.float32,
                            device=h.device)
         out = att._sdpa(q, k, v, mask, k.shape[2])
-        y = torch.einsum("bthd,hdD->btD", out, pa["wo"])
+        y = att._out_proj(out, pa["wo"])
         if "gate" in pa:
             y = torch.tanh(pa["gate"]) * y
         return y, aux_cache
@@ -336,9 +343,10 @@ def vlm_group_apply(p, x, cfg, *, q_pos, cache=None, cache_pos=None,
         x, _, _ = block_apply("dense", p_i, x, cfg, q_pos=q_pos,
                               cache=cache_i, cache_pos=cache_pos,
                               kv_valid=kv_valid, rope_cs=rope_cs)
+        x = shard(x, "batch", "seq", None)  # as between layers
     h = norm_apply(p["ln_c1"], x, cfg)
     c, new_aux = _cross_from_cache(p["cross"], h, cfg, q_pos, aux, aux_cache)
-    x = x + c
+    x = shard(x + c, "batch", "seq", None)
     h = norm_apply(p["ln_c2"], x, cfg)
     x = x + torch.tanh(p["cross_gate_mlp"]) * mlp_apply(p["cross_mlp"], h,
                                                         cfg)
@@ -396,12 +404,12 @@ def _logits(params, x, cfg) -> torch.Tensor:
     return shard(out, "batch", None, "vocab")
 
 
-def _window_schedule(cfg: ModelConfig) -> torch.Tensor:
-    """Per-layer sliding-window sizes (0 = global) for hybrid models, on
-    the host (a layer reads its entry as an int)."""
-    w = torch.full((cfg.n_layers,), cfg.sliding_window, dtype=torch.int32)
-    if cfg.global_attn_layers:
-        w[list(cfg.global_attn_layers)] = 0
+def _window_schedule(cfg: ModelConfig) -> List[int]:
+    """Per-layer sliding-window sizes (0 = global) for hybrid models, as
+    host ints (a layer reads its entry as an int)."""
+    w = [cfg.sliding_window] * cfg.n_layers
+    for i in cfg.global_attn_layers:
+        w[i] = 0
     return w
 
 
@@ -424,8 +432,13 @@ def _scan_group(g: Group, gp, x, cfg, apply_one, caches=None, extras=None):
     layer is checkpointed: its backward recomputes it.  Under an FSDP mesh
     a layer's weights are gathered at its use (``gather_fsdp``), inside
     the checkpoint; the residual stream is laid out as ("batch", "seq")
-    after every layer."""
+    after every layer.  A cache DTensor sharded on its layer dim (layers
+    on different ranks) is gathered whole for the loop and written back
+    into its shards after it."""
     n = g.n_layers
+    stacked = caches
+    if caches is not None:
+        caches = tree_map(_layers_gathered, caches)
 
     def gathered(p_l, *rest):
         return apply_one(gather_fsdp(p_l), *rest)
@@ -446,8 +459,20 @@ def _scan_group(g: Group, gp, x, cfg, apply_one, caches=None, extras=None):
         if caches is not None:
             _write_back(cache_l, new_c)
         auxes.append(aux_l)
+    if caches is not None:
+        _write_back(stacked, caches)
     aux = _stack(auxes) if auxes and auxes[0] is not None else None
-    return x, caches, aux
+    return x, stacked, aux
+
+
+def _layers_gathered(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor sharded on dim 0 (the stacked layers) replicated on that
+    dim's mesh axes; any other tensor as it is."""
+    if not isinstance(t, DTensor) or not any(
+            p.is_shard(0) for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_shard(0) else p for p in t.placements])
 
 
 def _encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
@@ -574,8 +599,9 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     caches, aux_caches)."""
     T = tokens.shape[1] + cfg.n_meta_tokens
     pos = torch.arange(T, device=tokens.device)
-    x = _with_meta(params, embed_apply(gather_fsdp(params["embed"]), tokens,
-                                       cfg).to(DTYPES[cfg.dtype]), cfg)
+    x = embed_apply(gather_fsdp(params["embed"]), tokens, cfg).to(
+        DTYPES[cfg.dtype])
+    x = _with_meta(params, shard(x, "batch", "seq", None), cfg)
     if not cfg.rope and "pos_embed" in params:
         x = x + params["pos_embed"][:T][None].to(x.dtype)
     if cfg.family == "encdec":
@@ -636,6 +662,7 @@ def decode_step(params: Dict, token: torch.Tensor, caches: Dict,
     pos = torch.full((1,), eff_pos, dtype=torch.long, device=token.device)
     x = embed_apply(gather_fsdp(params["embed"]), token, cfg).to(
         DTYPES[cfg.dtype])
+    x = shard(x, "batch", "seq", None)
     if not cfg.rope and "pos_embed" in params:
         x = x + params["pos_embed"][pos][None].to(x.dtype)
     if cfg.family == "encdec":

@@ -26,7 +26,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (logical_spec,
+from repro_torch.distributed.sharding import (current_mesh, logical_spec,
                                               logical_spec_for_shape, P,
                                               shard)
 from repro_torch.models import transformer as tf
@@ -89,10 +89,16 @@ def make_train_step(cfg: ModelConfig, opt: AdamW,
     def single_grads(params, mb):
         live = [p.detach().requires_grad_(True)
                 for p in tf.tree_leaves(params)]
+        # on a mesh the backward runs on this thread: the autograd engine
+        # would run a CUDA backward (and remat's recompute of each layer)
+        # on its device thread, where the thread-local sharding rules and
+        # DTensor's implicit replication of plain tensors are off
+        on_mesh = current_mesh() is not None
         with torch.enable_grad():
             loss, metrics = loss_fn(tf.tree_unflatten(params, live), mb, cfg)
-            grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                        materialize_grads=True)
+            with torch.autograd.set_multithreading_enabled(not on_mesh):
+                grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                            materialize_grads=True)
         return ([_placed_as(g, p) for g, p in zip(grads, live)],
                 {k: v.detach() for k, v in metrics.items()})
 

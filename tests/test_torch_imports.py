@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch/`` (the distributed
-and launch modules included; nor the GPU smoke
-script, nor the port's HTTP server, quickstart and training examples)
+"""The port stands alone: no file of ``src/repro_torch/`` (the distributed,
+launch and analysis modules included; nor the GPU smoke script, nor the
+port's examples: the HTTP server, quickstart, training, paged serving, SQL
+dump and load client)
 imports JAX or anything of the JAX package ``repro``, and every module
 imports without a GPU, ``nvcc`` or ``triton``."""
 
@@ -20,7 +21,13 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "examples" /
                                       "quickstart_torch.py",
                                       ROOT / "examples" /
-                                      "train_minilm_torch.py"]
+                                      "train_minilm_torch.py",
+                                      ROOT / "examples" /
+                                      "serve_paged_torch.py",
+                                      ROOT / "examples" /
+                                      "sql_dump_torch.py",
+                                      ROOT / "examples" /
+                                      "load_client_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -65,7 +72,10 @@ def test_checker_catches_reference_imports():
 @pytest.mark.parametrize("rel", ["distributed/sharding.py",
                                  "distributed/collectives.py",
                                  "distributed/pipeline.py",
-                                 "launch/mesh.py"])
+                                 "launch/mesh.py", "launch/specs.py",
+                                 "launch/dryrun.py", "launch/hillclimb.py",
+                                 "analysis/roofline.py"])
 def test_distributed_modules_are_walked(rel):
-    """The distributed slice's modules are among the files checked above."""
+    """The distributed and launch slices' modules are among the files
+    checked above."""
     assert PORT / rel in FILES

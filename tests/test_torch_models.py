@@ -208,7 +208,8 @@ def test_window_schedule_matches_reference():
         cfg = get_config("hymba-1.5b", tiny=tiny)
         want = np.asarray(jtf._window_schedule(j_get_config("hymba-1.5b",
                                                             tiny=tiny)))
-        np.testing.assert_array_equal(tf._window_schedule(cfg).numpy(), want)
+        np.testing.assert_array_equal(np.asarray(tf._window_schedule(cfg)),
+                                      want)
 
 
 def test_tree_from_numpy_keeps_bfloat16_bits():
