@@ -1794,6 +1794,19 @@ def _step_families(srv):
     return sorted(fam.items(), key=lambda kv: -kv[1])
 
 
+def _gc_pauses(srv, tracer):
+    """The collections of a traced server's process, from the program's
+    ``gc`` spans (the flight ring's, and those the tracer recorded since
+    the last tick): ``(start_us, end_us, generation)`` on the tracer's
+    timeline."""
+    from repro_torch.obs.trace import CAT, DUR, TS, record_arg
+    spans = [(r[TS], r[TS] + r[DUR], record_arg(r, "generation"))
+             for t in srv.flight.ticks() for r in t.records if r[CAT] == "gc"]
+    spans += [(e.ts_us, e.ts_us + e.dur_us, e.args["generation"])
+              for e in tracer.events if e.cat == "gc"]
+    return sorted(spans)
+
+
 def _stream_walls(results):
     """Each stream's client-side TTFT and TPOT in ms (connect to first
     chunk; the rest over the remaining tokens)."""
@@ -1860,17 +1873,6 @@ def serve_http(eng):
     for fn in wrappers:
         fn.launches = fn.calls = 0
     kernels.chunked_matmul.col_launches = 0
-    # the cyclic collector's pauses on the tracer's timeline: the flight
-    # ring retains every tick's spans, and a full collection walks them
-    pauses, opened = [], {}
-
-    def on_gc(phase, info):
-        if phase == "start":
-            opened["t"] = tracer._now_us()
-        elif "t" in opened:
-            pauses.append((opened.pop("t"), tracer._now_us(),
-                           info["generation"]))
-    gc.callbacks.append(on_gc)
     t0 = time.perf_counter()
     with _http_server(eng, reg, tracer,
                       drift_every=HTTP_DRIFT_EVERY) as srv:
@@ -1880,6 +1882,8 @@ def serve_http(eng):
         families = _step_families(srv)
         got += _http_streams(srv, [donor], HTTP_NEW)
         got += _http_streams(srv, hits, HTTP_NEW)
+        # the cyclic collector's pauses: the traced server's gc spans
+        pauses = _gc_pauses(srv, tracer)
         scrape = _http_get(srv, "/metrics").body.decode()
         flight = _http_get(srv, "/debug/flight").json()
         trace = _http_get(srv, f"/debug/trace/{got[0].trace_id}").json()
@@ -1895,7 +1899,6 @@ def serve_http(eng):
                  "coverage": trace["coverage"],
                  "events": len(trace["traceEvents"]),
                  "cats": {e["cat"] for e in trace["traceEvents"]}}
-    gc.callbacks.remove(on_gc)
     traced_s = time.perf_counter() - t0
     # the traced server's flight ring is gone: collect its spans now, so
     # the untraced runs are not charged for them, and recompile what a
@@ -1998,7 +2001,8 @@ def serve_http(eng):
         f"{plain_ms:.2f} ms over {len(plain_walls)} ticks "
         f"({traced_ms / plain_ms:.2f}x)")
     log("[phase 9] where a traced decode tick's time goes (mean ms a "
-        "tick, top-level spans by family; steps end in a synchronise):")
+        "tick, top-level spans by family; steps are the host's dispatch, "
+        "the wait for the card is in device_wait):")
     for key, ms in families[:14]:
         log(f"  {ms:9.3f} ms  {key}")
     walls9 = _stream_walls(served5)

@@ -29,8 +29,8 @@ under concurrency.
 With ``OBS_ARTIFACT_DIR`` set, a ``TraceRecorder`` is attached and
 shutdown (Ctrl-C or ``POST /admin/shutdown``) dumps the metrics registry
 (JSON + Prometheus text), the flight recorder's Chrome trace and the
-flight dump there.  A traced step synchronises the card, so leave tracing
-off when timing end to end.
+flight dump there.  The tracer stamps the host's side of each step and
+reads the card's time from CUDA events; it does not wait for the card.
 
 Live debugging: ``GET /debug/flight`` for the recent-tick ring,
 ``GET /debug/trace/{trace_id}`` for one request's end-to-end Chrome trace

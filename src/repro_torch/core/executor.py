@@ -1107,8 +1107,8 @@ def execute(node: RelNode, env: Dict[str, DenseTable],
     ``tracer`` (an ``Optional[repro_torch.obs.trace.TraceRecorder]``)
     records one ``cat="op"`` span per executed plan node, as the
     reference does.  Kernel launches are asynchronous, so an op span
-    measures dispatch; step-level wall time comes from ``run_pipeline``'s
-    ``cat="step"`` spans, which synchronise.  A fused subplan (a matmul
+    measures dispatch; a step's device time is the ``device_us`` of
+    ``run_pipeline``'s ``cat="step"`` span.  A fused subplan (a matmul
     site on K1, an attention subplan on K2 or K3) is one span: the nodes
     it replaces are not executed, so they have none.  With
     ``tracer=None`` the only cost is this ``None`` check.
@@ -1151,14 +1151,13 @@ _OP_SPAN_ARGS: Dict[int, tuple] = {}
 def _op_span_args(node: RelNode) -> Dict:
     """An op span's args (the node's type, and the tables its direct Scan
     inputs read, so a request's dump names the stored tables each op
-    read), built once per plan node: the spans of every execution share
-    the ``tables`` list, which keeps a retained span to two objects for
-    the cyclic collector to walk."""
+    read, as a tuple the span record keeps as it is), built once per plan
+    node and shared by the spans of every execution."""
     entry = _OP_SPAN_ARGS.get(id(node))
     if entry is not None and entry[0]() is node:
         return entry[1]
     kids = _plan_kids(node)
-    tables = sorted({c.table for c in kids if isinstance(c, Scan)})
+    tables = tuple(sorted({c.table for c in kids if isinstance(c, Scan)}))
     args = {"node": type(node).__name__}
     if tables:
         args["tables"] = tables

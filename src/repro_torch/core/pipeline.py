@@ -36,14 +36,14 @@ def _bind_scalars(scalars, device):
 
 
 def step_span_args(pipeline: RelPipeline):
-    """The ``(ops, tables)`` lists each step span of ``pipeline`` carries
-    (the op classes and tables of the step's plan), computed once a
-    pipeline and shared by its spans (no span mutates its args).  The
+    """The ``(ops, tables)`` tuples each step span of ``pipeline``
+    carries (the op classes and tables of the step's plan, read back as
+    lists), computed once a pipeline and shared by its spans.  The
     engine calls it inside a traced plan compile, so a serving tick does
     not pay for it."""
     args = getattr(pipeline, "_step_span_args", None)
     if args is None:
-        args = [(list(ops), list(tables)) for ops, tables in
+        args = [(tuple(ops), tuple(tables)) for ops, tables in
                 steps_provenance(s.rel.plan for s in pipeline.steps)]
         pipeline._step_span_args = args
     return args
@@ -89,12 +89,15 @@ def run_pipeline(
     records one ``cat="step"`` span per pipeline step, named after the
     step with its ``kind`` and the op classes and tables of its plan
     (``plan_provenance``), plus the executor's per-node ``cat="op"``
-    spans; the shard runner gets it too.  A step span ends in a
-    synchronise of the calling thread's current stream, so it measures the
-    step's device work, not its dispatch; the other streams (the pager's
-    copies, the shard workers') are not waited on.  On the CPU the work
-    is done on return.  With ``tracer=None`` the only cost is one
-    ``None`` check a step.
+    spans; the shard runner gets it too.  A step span is the host's
+    dispatch of the step: nothing waits for the card.  On a CUDA device
+    it also records a pair of timing events on the calling thread's
+    current stream at its edges (``TraceRecorder.device_span``); the
+    caller's host read of the outputs completes them, and
+    ``tracer.resolve_device()`` then stores each step's device time in
+    its span as ``device_us`` (the engine does both for every call).  On
+    the CPU the work is done on return.  With ``tracer=None`` the only
+    cost is one ``None`` check a step.
     """
     env = env.copy()
     layout_plan = layout_plan or getattr(pipeline, "layout_plan", None)
@@ -129,11 +132,9 @@ def run_pipeline(
     else:
         for step, (ops, tables) in zip(pipeline.steps,
                                        step_span_args(pipeline)):
-            with tracer.span(step.name, cat="step", kind=step.kind,
-                             ops=ops, tables=tables):
+            with tracer.device_span(step.name, "step", stream,
+                                    kind=step.kind, ops=ops, tables=tables):
                 run_step(step)
-                if stream is not None:
-                    stream.synchronize()
 
     outputs = {o: env[o] for o in pipeline.outputs}
     return outputs, env

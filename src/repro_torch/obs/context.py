@@ -93,6 +93,19 @@ class TraceContext:
     def _id_lists(self) -> Tuple[list, list]:
         return list(self.request_ids), list(self.trace_ids)
 
+    @functools.cached_property
+    def record_args(self) -> tuple:
+        """``span_args()`` as the alternating keys and values a span
+        record carries (``repro_torch.obs.trace``), built once."""
+        out = ()
+        for k, v in self.span_args().items():
+            out += (k, tuple(v) if isinstance(v, list) else v)
+        return out
+
+    @functools.cached_property
+    def record_keys(self) -> frozenset:
+        return frozenset(self.span_args())
+
 
 _CURRENT: contextvars.ContextVar[Optional[TraceContext]] = \
     contextvars.ContextVar("repro_trace_context", default=None)

@@ -17,8 +17,13 @@ never O(history), so the lock stays cheap).
 Timeline: span timestamps are microseconds since the *tracer's* epoch.
 Construct the recorder with ``epoch_s=tracer._epoch`` (or via
 :meth:`FlightRecorder.for_tracer`) and event/tick timestamps land on
-the same monotonic timeline, so a dump interleaves spans, events and
-tick boundaries in true order.
+the same timeline (the tracer's clock), so a dump interleaves spans,
+events and tick boundaries in true order.
+
+Retention: a tick keeps its spans as the tracer's records (tuples of
+atomic values, :mod:`repro_torch.obs.trace`), which the cyclic collector
+does not walk; :attr:`FlightTick.spans` reads them as
+:class:`~repro_torch.obs.trace.SpanEvent`\\ s.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
-from .trace import SpanEvent
+from .trace import CAT, DEPTH, DUR, NAME, TS, SpanEvent, record_us
 
 __all__ = ["FlightRecorder", "FlightTick", "FlightEvent"]
 
@@ -47,28 +52,35 @@ class FlightTick:
     wall_us: float                # wall time of the underlying work
     request_ids: Tuple[int, ...] = ()
     trace_ids: Tuple[str, ...] = ()
-    spans: Tuple[SpanEvent, ...] = ()
+    records: Tuple[tuple, ...] = ()  # the tick's spans, as trace records
     pinned: bool = False
+
+    @property
+    def spans(self) -> Tuple[SpanEvent, ...]:
+        return tuple(SpanEvent.from_record(r) for r in self.records)
 
     def named_us(self) -> float:
         """Wall time attributed to named top-level spans.  Only
         depth-0 spans count — nested op/DB sub-spans re-describe time
         their parent already covers."""
-        return sum(s.dur_us for s in self.spans if s.depth == 0)
+        return sum(r[DUR] for r in self.records if r[DEPTH] == 0)
 
     def coverage(self) -> float:
         """Fraction of this tick's wall time attributed to named spans
         (clipped to 1.0 — span clocks can overshoot the outer wall
         measurement by scheduling noise)."""
         if self.wall_us <= 0:
-            return 1.0 if not self.spans else 0.0
+            return 1.0 if not self.records else 0.0
         return min(1.0, self.named_us() / self.wall_us)
 
     def step_times_us(self, cat: str = "step") -> Dict[str, float]:
+        """Summed time per span name within ``cat``: a step's
+        ``device_us`` where the card's events gave one, else its
+        duration."""
         out: Dict[str, float] = {}
-        for s in self.spans:
-            if s.cat == cat:
-                out[s.name] = out.get(s.name, 0.0) + s.dur_us
+        for r in self.records:
+            if r[CAT] == cat:
+                out[r[NAME]] = out.get(r[NAME], 0.0) + record_us(r)
         return out
 
     def to_dict(self, with_spans: bool = False) -> Dict:
@@ -76,7 +88,7 @@ class FlightTick:
              "ts_us": self.ts_us, "wall_us": self.wall_us,
              "request_ids": list(self.request_ids),
              "trace_ids": list(self.trace_ids),
-             "n_spans": len(self.spans), "coverage": self.coverage(),
+             "n_spans": len(self.records), "coverage": self.coverage(),
              "pinned": self.pinned}
         if with_spans:
             d["spans"] = [dataclasses.asdict(s) for s in self.spans]
@@ -123,21 +135,33 @@ class FlightRecorder:
     def now_us(self) -> float:
         return (self._clock() - self._epoch) * 1e6
 
+    @property
+    def next_seq(self) -> int:
+        """The sequence number the next tick will get: a reader that
+        takes it at some instant and later finds the oldest retained tick
+        past it knows the ring dropped ticks in between."""
+        with self._lock:
+            return self._seq
+
     # -- writes (scheduler thread / any thread for events) ---------------------
 
-    def record_tick(self, kind: str, spans: Sequence[SpanEvent] = (),
+    def record_tick(self, kind: str, spans: Sequence = (),
                     wall_us: float = 0.0, tick: int = 0,
                     request_ids: Sequence[int] = (),
                     trace_ids: Sequence[str] = (),
                     ts_us: Optional[float] = None) -> FlightTick:
-        spans = tuple(spans)
+        """Record one tick; ``spans`` are the tracer's records (as
+        :meth:`~repro_torch.obs.trace.TraceRecorder.drain_records` gives
+        them) or :class:`SpanEvent`\\ s."""
+        records = tuple(s if type(s) is tuple else s.to_record()
+                        for s in spans)
         if ts_us is None:
-            ts_us = (spans[0].ts_us if spans
+            ts_us = (records[0][TS] if records
                      else self.now_us() - wall_us)
         rec = FlightTick(seq=0, tick=tick, kind=kind, ts_us=float(ts_us),
                          wall_us=float(wall_us),
                          request_ids=tuple(request_ids),
-                         trace_ids=tuple(trace_ids), spans=spans)
+                         trace_ids=tuple(trace_ids), records=records)
         with self._lock:
             rec.seq = self._seq
             self._seq += 1

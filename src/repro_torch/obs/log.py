@@ -61,5 +61,5 @@ def log_event(event: str, level: int = logging.WARNING, **fields) -> None:
             event=event).inc()
     flight = _flight_recorder
     if flight is not None:
-        flight.record_event(
-            event, fields, ts_us=(ts_s - flight._epoch) * 1e6)
+        # on the flight recorder's clock, which is its tracer's
+        flight.record_event(event, fields)

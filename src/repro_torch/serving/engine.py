@@ -186,11 +186,13 @@ class RelationalEngine:
     pager here, decode ticks and the prefix cache in
     :class:`BatchedDecoder`, requests in the scheduler.  ``tracer`` is an
     optional ``repro_torch.obs.TraceRecorder``: one ``cat="plan"`` span a
-    plan compile, ``session_env`` spans, the decoder's phase spans, and
-    through ``run_pipeline`` one ``cat="step"`` span a pipeline step (each
-    ending in a synchronise of the current stream, so leave it ``None``
-    when timing end to end) with the executor's ``cat="op"`` spans; the
-    pager and the shard workers record their own.
+    plan compile, ``session_env`` spans, the decoder's phase spans, a
+    ``device_wait`` span around each host read of the logits (where the
+    host waits for the card), and through ``run_pipeline`` one
+    ``cat="step"`` span a pipeline step (the host's dispatch; its device
+    time, read after the logits, in ``device_us``) with the executor's
+    ``cat="op"`` spans; the pager and the shard workers record their
+    own.
     """
 
     PRECISION_KNOBS = ("f32", "auto", "int8", "nf4")
@@ -512,9 +514,16 @@ class RelationalEngine:
         return env
 
     def _final_logits(self, out_table) -> np.ndarray:
-        """Final-position logits row (un-padded vocab), copied to the host."""
+        """Final-position logits row (un-padded vocab), copied to the host,
+        and the call's step spans' device times read, under one
+        ``device_wait`` span: the copy waits for the call's device
+        work."""
         v = out_table.cols["v"]
-        return v.reshape(v.shape[0], -1)[-1, : self.spec.vocab].cpu().numpy()
+        with self._span("device_wait"):
+            row = v.reshape(v.shape[0], -1)[-1, : self.spec.vocab].cpu()
+            if self.tracer is not None:
+                self.tracer.resolve_device()
+        return row.numpy()
 
     @property
     def table_precision_choices(self) -> Dict[str, str]:
@@ -879,9 +888,12 @@ class BatchedDecoder:
             # (freeing a few thousand tensors takes milliseconds)
             del env
         with span("logits_argmax"):
-            logits = outs["logits"].cols["v"].reshape(bucket, -1)[
-                :B, : eng.spec.vocab].cpu().numpy()
-            next_toks = [int(t) for t in np.argmax(logits, axis=1)]
+            with span("device_wait"):
+                logits = outs["logits"].cols["v"].reshape(bucket, -1)[
+                    :B, : eng.spec.vocab].cpu()
+                if eng.tracer is not None:
+                    eng.tracer.resolve_device()
+            next_toks = [int(t) for t in np.argmax(logits.numpy(), axis=1)]
             del outs
         if metrics is not None:
             metrics.histogram(

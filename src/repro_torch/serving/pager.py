@@ -81,12 +81,14 @@ class WeightPager:
     records a ``pager_fetch:{name}`` span for each miss and a
     ``pager_prefetch:{name}`` span for each prefetched entry (``cat=
     "pager"``, ``depth=1``, ``bytes=`` the cold entry's size), through
-    ``add_span``, which is safe from the prefetch thread.  As in the
-    reference, where the span covers an asynchronous ``device_put``, a
-    span covers issuing the copy on the pager's stream (and staging a
-    memmap through pinned memory), not the copy itself: the stream that
-    reads the table waits on the copy's event, and that wait is charged to
-    the step that reads it.
+    ``add_span``, which is safe from the prefetch thread.  A miss's span
+    covers the whole ``get``: the wait for the lock, the allocation, the
+    evictions, issuing the copy on the pager's stream (and staging a
+    memmap through pinned memory) and ordering the reader's stream after
+    it; a prefetch's covers issuing its copy.  Neither covers the copy
+    itself: the stream that reads the table waits on the copy's event on
+    the card.  Hits and prefetch hits record no span (``stats`` counts
+    them).
     """
 
     def __init__(self, budget_bytes: int, disk_dir: Optional[str] = None,
@@ -206,16 +208,11 @@ class WeightPager:
             ready.record(self._stream)
         return hot, ready
 
-    def _traced_fetch(self, span: str, cold):
-        """``_fetch`` under a ``cat="pager"`` span when a tracer is set."""
-        if self.tracer is None:
-            return self._fetch(cold)
-        t0 = self.tracer._now_us()
-        out = self._fetch(cold)
-        self.tracer.add_span(span, cat="pager", ts_us=t0,
+    def _span(self, name: str, t0: float, cold) -> None:
+        """A ``cat="pager"`` span from ``t0`` (the tracer's µs) to now."""
+        self.tracer.add_span(name, cat="pager", ts_us=t0,
                              dur_us=self.tracer._now_us() - t0, depth=1,
                              bytes=_nbytes(cold))
-        return out
 
     def _use(self, arr: torch.Tensor, ready) -> torch.Tensor:
         """Order the calling thread's stream after the entry's copy and
@@ -263,6 +260,8 @@ class WeightPager:
 
     def get(self, name: str) -> torch.Tensor:
         """Fetch a weight into the hot set (device), paging as needed."""
+        t0 = self.tracer._now_us() if self.tracer is not None else 0.0
+        cold = None
         with self._lock:
             if name in self._hot:
                 self._ref[name] = True
@@ -291,7 +290,7 @@ class WeightPager:
                     self.metrics.counter(
                         "pager_bytes_loaded_total",
                         "bytes moved cold→device").inc(_nbytes(cold))
-                arr, ready = self._traced_fetch(f"pager_fetch:{name}", cold)
+                arr, ready = self._fetch(cold)
                 nb = _nbytes(arr)
                 self._evict_until(nb)
                 self._held += nb
@@ -303,7 +302,10 @@ class WeightPager:
             if self.metrics is not None:
                 self.metrics.gauge("pager_held_bytes",
                                    "device hot-set bytes").set(self._held)
-            return self._use(arr, ready)
+            out = self._use(arr, ready)
+        if cold is not None and self.tracer is not None:
+            self._span(f"pager_fetch:{name}", t0, cold)
+        return out
 
     def get_many(self, names: Iterable[str]) -> Dict[str, torch.Tensor]:
         return {n: self.get(n) for n in names}
@@ -332,7 +334,10 @@ class WeightPager:
                     continue
                 # the slow copy, outside the lock; its event is recorded
                 # before the entry is published below
-                arr, ready = self._traced_fetch(f"pager_prefetch:{n}", cold)
+                t0 = self.tracer._now_us() if self.tracer is not None else 0.0
+                arr, ready = self._fetch(cold)
+                if self.tracer is not None:
+                    self._span(f"pager_prefetch:{n}", t0, cold)
                 nb = _nbytes(arr)
                 with self._lock:
                     if n in self._hot or n in self._prefetched:

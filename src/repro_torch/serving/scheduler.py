@@ -162,9 +162,9 @@ class ContinuousBatcher:
         # cost):
         # tracer  — the engine's TraceRecorder; when a flight recorder is
         #           given too, the batcher DRAINS it after every prefill/
-        #           decode so a long-running server never accumulates an
-        #           unbounded span list (the flight ring is the retention
-        #           policy)
+        #           decode (every span since the last drain) so a
+        #           long-running server never accumulates an unbounded
+        #           span list (the flight ring is the retention policy)
         # flight  — repro_torch.obs.flight.FlightRecorder receiving one
         #           record per prefill/decode tick with the request ids it
         #           served
@@ -227,6 +227,20 @@ class ContinuousBatcher:
         if self.on_done is not None:
             self.on_done(req)
 
+    def _record_tick(self, kind: str, ts_us: float, wall_s: float,
+                     request_ids, trace_ids) -> None:
+        """One flight record for a prefill or decode call that started at
+        ``ts_us`` (the flight recorder's clock) and took ``wall_s``, with
+        every span the tracer recorded since the last one: the call's,
+        and those other threads (the pager's prefetch, a collection)
+        recorded between calls."""
+        spans = (self.tracer.drain_records() if self.tracer is not None
+                 else ())
+        self.flight.record_tick(kind, spans=spans, wall_us=wall_s * 1e6,
+                                tick=self.stats.ticks,
+                                request_ids=request_ids,
+                                trace_ids=trace_ids, ts_us=ts_us)
+
     def _admit(self) -> None:
         while self.queue and len(self.active) < self.max_batch:
             req = self.queue[0]
@@ -265,19 +279,13 @@ class ContinuousBatcher:
             pctx = TraceContext.for_request(req.rid, req.trace_id,
                                             phase="prefill",
                                             tick=self.stats.ticks)
-            n0 = (len(self.tracer.events) if self.tracer is not None
-                  and self.flight is not None else 0)
+            ts = self.flight.now_us() if self.flight is not None else 0.0
             t0p = time.perf_counter()
             with activate(pctx):
                 res = self.prefill_fn(req, seq_id)
             if self.flight is not None:
-                spans = (self.tracer.drain(n0)
-                         if self.tracer is not None else ())
-                self.flight.record_tick(
-                    "prefill", spans=spans,
-                    wall_us=(time.perf_counter() - t0p) * 1e6,
-                    tick=self.stats.ticks, request_ids=(req.rid,),
-                    trace_ids=(req.trace_id,))
+                self._record_tick("prefill", ts, time.perf_counter() - t0p,
+                                  (req.rid,), (req.trace_id,))
             tok, cached = res if isinstance(res, tuple) else (res, 0)
             # the scheduler owns kv.seq_lens end to end: the context length
             # here, the per-tick decode increment in tick()
@@ -386,19 +394,15 @@ class ContinuousBatcher:
             request_ids=tuple(self.active[s].rid for s in seq_ids),
             trace_ids=tuple(self.active[s].trace_id for s in seq_ids),
             phase="decode", tick=self.stats.ticks)
-        n0 = (len(self.tracer.events) if self.tracer is not None
-              and self.flight is not None else 0)
+        ts = self.flight.now_us() if self.flight is not None else 0.0
         t0 = time.perf_counter()
         with activate(dctx):
             next_tokens = self.decode_fn(seq_ids, last)
         t1 = time.perf_counter()
         self.stats.decode_steps += 1
         if self.flight is not None:
-            spans = self.tracer.drain(n0) if self.tracer is not None else ()
-            self.flight.record_tick(
-                "decode", spans=spans, wall_us=(t1 - t0) * 1e6,
-                tick=self.stats.ticks, request_ids=dctx.request_ids,
-                trace_ids=dctx.trace_ids)
+            self._record_tick("decode", ts, t1 - t0, dctx.request_ids,
+                              dctx.trace_ids)
         if self.metrics is not None:
             self.metrics.histogram(
                 "serving_tick_seconds",

@@ -64,6 +64,7 @@ import torch
 from repro_torch.obs.context import new_trace_id
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.log import set_flight_recorder
+from repro_torch.obs.trace import GcSpans
 from repro_torch.obs.metrics import (OPENMETRICS_CONTENT_TYPE,
                                      PROMETHEUS_CONTENT_TYPE)
 from repro_torch.serving import api
@@ -159,6 +160,7 @@ class AsyncLLMServer:
         self._http: Optional[asyncio.base_events.Server] = None
         self._sched_thread: Optional[threading.Thread] = None
         self._shutdown_ev: Optional[asyncio.Event] = None
+        self._gc_spans: Optional[GcSpans] = None
         self.port: Optional[int] = None
 
     # -- scheduler thread ----------------------------------------------------
@@ -167,7 +169,7 @@ class AsyncLLMServer:
         """The batcher's loop on its own thread.  The engine was built on
         another thread: on a CUDA engine the loop makes the engine's card
         current here, and every tick runs on this thread's current stream,
-        which the step spans synchronise and the pager's
+        on which the step spans record their events and which the pager's
         ``record_stream`` names."""
         dev = getattr(self.engine, "device", None)
         with (torch.cuda.device(dev) if dev is not None
@@ -266,12 +268,14 @@ class AsyncLLMServer:
                             is not None else cfg.tpot_slo_s))
             stream = _Stream(req=req, queue=asyncio.Queue())
             self._streams[rid] = stream
+            # the admission record goes in before the scheduler can see
+            # the request: a request's ticks start with it in the ring
+            self.flight.record_admission(
+                req.rid, req.trace_id,
+                wall_us=(time.perf_counter() - t0_admit) * 1e6,
+                tick=self.batcher.stats.ticks)
             self._pending.append(req)
             self._cond.notify()
-        self.flight.record_admission(
-            req.rid, req.trace_id,
-            wall_us=(time.perf_counter() - t0_admit) * 1e6,
-            tick=self.batcher.stats.ticks)
         if self.metrics is not None:
             self.metrics.gauge("serving_queue_depth",
                                "requests waiting for a batch slot").set(
@@ -484,9 +488,13 @@ class AsyncLLMServer:
     # -- lifecycle -----------------------------------------------------------
 
     async def start(self) -> None:
-        """Bind the listening socket and start the scheduler thread."""
+        """Bind the listening socket and start the scheduler thread; with
+        a tracer, record every collection of the process as a ``gc``
+        span until shutdown."""
         self._loop = asyncio.get_running_loop()
         self._shutdown_ev = asyncio.Event()
+        if self.tracer is not None and self._gc_spans is None:
+            self._gc_spans = GcSpans(self.tracer).install()
         self._sched_thread = threading.Thread(
             target=self._scheduler_loop, name="transql-scheduler",
             daemon=True)
@@ -513,6 +521,9 @@ class AsyncLLMServer:
             self._cond.notify_all()
         if self._sched_thread is not None:
             self._sched_thread.join(timeout=10.0)
+        if self._gc_spans is not None:
+            self._gc_spans.remove()
+            self._gc_spans = None
         if self._http is not None:
             self._http.close()
             await self._http.wait_closed()

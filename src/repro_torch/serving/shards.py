@@ -204,10 +204,11 @@ class ShardWorker:
         captures it at fan-out and this method re-activates it: the
         worker's spans then carry the coordinator's request ids.
 
-        With ``trace`` on, the plan copy runs under one ``cat="shard"``
-        span ``"{step}::shard{s}"`` in the worker's own recorder, ending
-        in a synchronise of the worker's stream (not the device: the other
-        workers' streams run on)."""
+        With ``trace`` on, the plan copy's dispatch runs under one
+        ``cat="shard"`` span ``"{step}::shard{s}"`` in the worker's own
+        recorder, a step span of the worker's stream: its ``device_us``
+        is read once the worker has waited for its ``done`` event (its own
+        stream, not the device: the other workers' streams run on)."""
         t0 = time.perf_counter()
         env = self.env.copy()
         memo: Dict[int, DenseTable] = {}
@@ -223,16 +224,18 @@ class ShardWorker:
                 self.stream.wait_event(ready)
                 _record(left, self.stream)
             span = (contextlib.nullcontext() if self.tracer is None
-                    else self.tracer.span(f"{dec.step_name}::shard{s}",
-                                          cat="shard", table=dec.table,
-                                          kind=dec.kind,
-                                          combine=dec.combine))
+                    else self.tracer.device_span(
+                        f"{dec.step_name}::shard{s}", "shard", self.stream,
+                        table=dec.table, kind=dec.kind,
+                        combine=dec.combine))
             with span:
                 out = execute(dec.shard_roots[s], env, memo, scalars)
-                if self.stream is not None:
-                    done = torch.cuda.Event()
-                    done.record(self.stream)
-                    done.synchronize()
+            if self.stream is not None:
+                done = torch.cuda.Event()
+                done.record(self.stream)
+                done.synchronize()
+            if self.tracer is not None:
+                self.tracer.resolve_device()
         busy = time.perf_counter() - t0
         self.metrics.counter("shard_worker_runs_total",
                              "per-shard plan executions").inc()

@@ -127,6 +127,13 @@ def span_key(e):
             tuple(sorted((k, str(v)) for k, v in e.args.items())))
 
 
+def jax_twins(tracer):
+    """The port's spans that the JAX engine records too: all but the
+    ``device_wait`` spans around the host's reads of the logits (the
+    reference's host read is not a span)."""
+    return [e for e in tracer.events if e.name != "device_wait"]
+
+
 @pytest.mark.parametrize("knob", [dict(tracer=True)])
 def test_unported_knobs_raise(knob):
     """Named for what it pinned before every knob was ported (the last,
@@ -144,7 +151,7 @@ def test_unported_knobs_raise(knob):
     assert te.tracer is tt
     prompt = [3, 17, 42, 5]
     assert te.generate(prompt, 4).tokens == je.generate(prompt, 4).tokens
-    assert [span_key(e) for e in tt.events] == [
+    assert [span_key(e) for e in jax_twins(tt)] == [
         span_key(e) for e in jt.events]
     steps = [e.name for e in tt.events if e.cat == "step"]
     assert steps == [s.name for s in te._prefill_pipe(4).steps] + 3 * [
@@ -311,7 +318,7 @@ def test_tracer_raises_naming_n6():
     last = [jd.prefill([4, 5, 6], s) for s in (0, 1)]
     assert [td.prefill([4, 5, 6], s) for s in (0, 1)] == last
     assert td.decode([0, 1], last) == jd.decode([0, 1], last)
-    assert [span_key(e) for e in tt.events] == [
+    assert [span_key(e) for e in jax_twins(tt)] == [
         span_key(e) for e in jt.events]
     assert {"cache_views", "cache_writeback", "logits_argmax",
             "cache_fill"} <= {e.name for e in tt.events

@@ -20,6 +20,7 @@ from repro_torch.kernels import (chunked_matmul,  # noqa: E402
                                  flash_attention, paged_attention, ref)
 from repro_torch.kernels._build import sm_count  # noqa: E402
 from repro_torch.kernels.chunked_matmul import _aligned, _plan  # noqa: E402
+from repro_torch.obs import TraceRecorder  # noqa: E402
 from repro_torch.serving.engine import RelationalEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -718,11 +719,11 @@ def test_sharded_engine_on_the_card_matches_unsharded(cuda, n, residency):
 
 @pytest.mark.parametrize("residency", ["in_memory", "paged"])
 def test_traced_tick_on_the_card_matches_untraced(cuda, residency):
-    """A traced engine on the card (each step span synchronises the current
-    stream) gives the untraced engine's logits and batched tokens bit for
-    bit, records one ``cat="step"`` span a pipeline step with a positive
-    duration, and, paged, one ``pager_fetch:`` span a miss."""
-    from repro_torch.obs import TraceRecorder
+    """A traced engine on the card (each step span records a pair of
+    events on the current stream, read after the call's logits) gives the
+    untraced engine's logits and batched tokens bit for bit, records one
+    ``cat="step"`` span a pipeline step with a positive duration and
+    ``device_us``, and, paged, one ``pager_fetch:`` span a miss."""
     spec = LlamaSpec(**dict(TINY, n_layers=2))
     params = init_llama_params(spec, seed=0)
     paged = (dict(residency="paged", budget_bytes=1 << 16)
@@ -749,17 +750,18 @@ def test_traced_tick_on_the_card_matches_untraced(cuda, residency):
     assert len(steps) == len(traced._prefill_pipe(3).steps) + len(
         traced._prefill_pipe(2).steps) + 3 * per_tick
     assert all(e.dur_us > 0 and e.depth == 0 for e in steps)
+    assert all(e.args["device_us"] > 0 for e in steps)
     fetches = [e for e in tracer.events if e.name.startswith("pager_fetch:")]
     assert bool(fetches) == (residency == "paged")
 
 
 def test_sharded_traced_step_on_the_card_gives_worker_spans(cuda):
     """``shards=2`` with a tracer on the card: every sharded site of a step
-    gives one ``"{step}::shard{s}"`` span in each worker's recorder (each
-    ending in a synchronise of the worker's own stream), the merged trace
-    puts the coordinator and the two workers on three pids, and the
-    logits equal the untraced sharded engine's."""
-    from repro_torch.obs import TraceRecorder
+    gives one ``"{step}::shard{s}"`` span in each worker's recorder (its
+    dispatch, with the device time of the worker's stream as
+    ``device_us``), the merged trace puts the coordinator and the two
+    workers on three pids, and the logits equal the untraced sharded
+    engine's."""
     spec = LlamaSpec(**dict(TINY, n_layers=1))
     params = init_llama_params(spec, seed=0)
     kw = dict(chunk_size=4, max_len=16, device=cuda, shards=2)
@@ -775,11 +777,171 @@ def test_sharded_traced_step_on_the_card_gives_worker_spans(cuda):
         spans = [e for e in w.tracer.events if e.cat == "shard"]
         assert len(spans) == sites > 0
         assert all(e.name.endswith(f"::shard{w.index}") and e.dur_us > 0
-                   for e in spans)
+                   and e.args["device_us"] > 0 for e in spans)
     merged = traced.merged_shard_trace()
     assert {e["pid"] for e in merged["traceEvents"]} == {1, 2, 3}
     for eng in (plain, traced):
         eng.shard_pool.shutdown()
+
+
+def _device_events(prof):
+    """``(start_ns, end_ns, name)`` of every kernel and copy the profiler
+    saw on the card, on its clock."""
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        a = (ev.start_ns() if hasattr(ev, "start_ns")
+             else int(ev.start_us() * 1000))
+        out.append((a, a + (ev.duration_ns() if hasattr(ev, "duration_ns")
+                            else int(ev.duration_us() * 1000)), ev.name()))
+    return out
+
+
+def _busy_ns(events):
+    busy, end = 0, None
+    for a, b, _ in sorted(events):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def _spin_cycles(ms: float) -> int:
+    """``torch.cuda._sleep`` cycles that keep the card busy ~``ms``."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    torch.cuda.synchronize()
+    return int(10 ** 8 * ms / start.elapsed_time(end))
+
+
+def _profiled(fn):
+    """``fn()`` under a CUDA-only profiler, and the card's events; the
+    profiler is started once first, so CUPTI is up before ``fn`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    return out, _device_events(prof)
+
+
+class _SpinAfterFirstStep(TraceRecorder):
+    """A recorder that, once armed with ``cycles``, queues a spin on the
+    card right after the next step span closes: the host then dispatches
+    the rest of the call while the card spins."""
+
+    cycles = 0
+
+    def _record(self, name, cat, *rest):
+        rec = super()._record(name, cat, *rest)
+        if self.cycles and cat == "step":
+            torch.cuda._sleep(self.cycles)
+            self.cycles = 0
+        return rec
+
+
+@pytest.fixture(scope="module")
+def paged_8b():
+    """An engine at Llama-3-8B width, two layers paged through 256 MiB
+    (every table streamed from pinned host memory), traced by a
+    :class:`_SpinAfterFirstStep`, with two slots prefilled and decoded
+    twice (the allocator's cache then holds a call's blocks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core.llama_graph import init_llama_tensors
+    spec = LlamaSpec(vocab=32000, d_model=4096, n_layers=2, n_heads=32,
+                     n_kv=8, d_ff=14336, rope_theta=500000.0)
+    tracer = _SpinAfterFirstStep()
+    eng = RelationalEngine(spec, init_llama_tensors(spec, seed=0,
+                                                    device="cuda"),
+                           chunk_size=64, max_len=576, residency="paged",
+                           budget_bytes=1 << 28, tracer=tracer,
+                           device="cuda")
+    dec = eng.batched_decoder(2)
+    last = [dec.prefill([1, 2, 3], 0), dec.prefill([9, 8], 1)]
+    for _ in range(2):
+        last = dec.decode([0, 1], last)
+    return eng, dec, last
+
+
+def _spun_call(eng, fn):
+    """``fn()`` with a ~200 ms spin after its first step, profiled: the
+    spin's event, the later step records and the card's events."""
+    from repro_torch.obs.trace import CAT
+    tracer = eng.tracer
+    cycles = _spin_cycles(200.0)
+    tracer.clear()
+
+    def call():
+        tracer.cycles = cycles
+        return fn()
+    _, events = _profiled(call)
+    spin = max(events, key=lambda e: e[1] - e[0])
+    assert spin[1] - spin[0] > 150e6
+    steps = [r for r in tracer._records if r[CAT] == "step"]
+    return spin, steps[1:], events
+
+
+def test_step_spans_wait_for_nothing(paged_8b):
+    """A traced paged decode call with the card spinning from its second
+    step on: every later step span ends before the spin does, so none
+    waited on the stream.  (The first step is the embedding's value join,
+    whose range check reads the token ids on the host: a wait at the
+    call's start, where the stream holds little.)"""
+    from repro_torch.obs.trace import DUR, TS
+    eng, dec, last = paged_8b
+    spin, rest, _ = _spun_call(eng, lambda: dec.decode([0, 1], last))
+    assert rest
+    last_step_end = max(eng.tracer.epoch_ns + (r[TS] + r[DUR]) * 1e3
+                        for r in rest)
+    assert last_step_end < spin[1], (last_step_end - spin[1]) / 1e6
+
+
+def test_step_device_times_add_up_to_the_cards_busy_time(paged_8b):
+    """A traced 512-token prefill (its tables copied while the card spins
+    after the first step, its GEMMs then long beside the gaps between
+    kernels): the later steps' ``device_us`` add up to within 10 % of the
+    card's busy time after the spin."""
+    from repro_torch.obs.trace import record_arg
+    eng, _, _ = paged_8b
+    prompt = [int(t) for t in torch.arange(512) % 32000]
+    eng.start_session(prompt)
+    spin, rest, events = _spun_call(eng, lambda: eng.start_session(prompt))
+    after = [(max(a, spin[1]), b, n) for a, b, n in events
+             if b > spin[1] and (a, b, n) != spin]
+    device_us = sum(record_arg(r, "device_us") for r in rest)
+    busy_us = _busy_ns(after) / 1e3
+    assert abs(device_us - busy_us) <= 0.1 * busy_us, (device_us, busy_us)
+
+
+def test_span_and_profiler_share_a_clock(cuda):
+    """A span around a ~50 ms spin on the card and a synchronise brackets
+    the profiler's event for that spin to within 50 µs at both edges: the
+    tracer's ``epoch_ns + ts_us * 1000`` and the profiler's timestamps are
+    on one clock."""
+    from repro_torch.obs.trace import DUR, TS
+    cycles = _spin_cycles(50.0)
+    tracer = TraceRecorder()
+
+    def spin():
+        with tracer.span("spin", cat="step"):
+            torch.cuda._sleep(cycles)
+            torch.cuda.synchronize()
+    _, events = _profiled(spin)
+    rec, = tracer._records
+    s0 = tracer.epoch_ns + rec[TS] * 1e3
+    s1 = s0 + rec[DUR] * 1e3
+    k0, k1, _ = max(events, key=lambda e: e[1] - e[0])
+    assert k1 - k0 > 40e6
+    assert s0 - 50e3 <= k0 and k1 <= s1 + 50e3, ((k0 - s0) / 1e3,
+                                                 (s1 - k1) / 1e3)
 
 
 # -- the dense baseline: the model stack and DirectEngine ----------------------

@@ -90,6 +90,13 @@ def span_key(e):
             tuple(sorted((k, str(v)) for k, v in e.args.items())))
 
 
+def jax_twins(tracer):
+    """The port's spans that the JAX engine records too: all but the
+    ``device_wait`` spans around the host's reads of the logits (the
+    reference's host read is not a span)."""
+    return [e for e in tracer.events if e.name != "device_wait"]
+
+
 # -- TestTraceRecorder --------------------------------------------------------
 
 
@@ -607,7 +614,7 @@ def test_traced_engine_matches_jax(knobs):
             last = dec.decode([0, 1, 2], last)
         toks.append(last)
     assert toks[0] == toks[1]
-    assert [span_key(e) for e in tt.events] == [
+    assert [span_key(e) for e in jax_twins(tt)] == [
         span_key(e) for e in jt.events]
     names = {e.name for e in tt.events if e.cat in ("decoder", "plan")}
     assert {"session_env", "prefix_lookup", "cache_fill", "cache_views",
@@ -653,7 +660,8 @@ def test_traced_paged_engine_matches_jax(tmp_path, budget):
 
     def keys(tracer):
         return [span_key(e) for e in tracer.events
-                if not e.name.endswith(":vocabulary")]
+                if not e.name.endswith(":vocabulary")
+                and e.name != "device_wait"]
     assert keys(tt) == keys(jt)
     fetches = [e for e in tt.events if e.name.startswith("pager_fetch:")]
     assert bool(fetches) == bool(budget)

@@ -277,7 +277,8 @@ def test_tracing_raises_naming_n6():
     ``"{step}::shard{s}"`` span (``cat="shard"``) carrying the
     coordinator's request ids, and ``merged_shard_trace`` puts the
     coordinator on pid 1 and each worker on its own pid, with the same
-    events as the JAX engine's."""
+    events as the JAX engine's (but the port's ``device_wait`` spans
+    around its host reads of the logits, which the reference has not)."""
     traces, toks = [], []
     for eng_cls, obs, kw in ((JEngine, jobs, {}),
                              (RelationalEngine, tobs, {"device": "cpu"})):
@@ -291,7 +292,7 @@ def test_tracing_raises_naming_n6():
         traces.append(sorted(
             (e["name"], e["cat"], e["pid"], e["tid"],
              sorted((k, str(v)) for k, v in e["args"].items()))
-            for e in merged["traceEvents"]))
+            for e in merged["traceEvents"] if e["name"] != "device_wait"))
         eng.shard_pool.shutdown()
     assert toks[0] == toks[1] and traces[0] == traces[1]
     assert {e[2] for e in traces[1]} == {1, 2, 3}
