@@ -28,7 +28,11 @@ decoder-phase, pipeline-step, op, pager and shard spans).
 
 The reference's docstring says its relational pager prefetches the next
 layer's tables during compute; its code prefetches only the
-``vocabulary`` table at the start of each session, and so does this port.
+``vocabulary`` table at the start of each session.  This port marks each
+``run_pipeline`` call as one pass of the pager (``begin_pass`` /
+``end_pass``): under ``pager_policy="pin"`` the pager then spreads its
+resident tables along the pass and issues the streamed tables' copies
+ahead of their Scans (:class:`~repro_torch.serving.pager.WeightPager`).
 """
 
 from __future__ import annotations
@@ -169,10 +173,12 @@ class RelationalEngine:
     tables in a :class:`~repro_torch.serving.pager.WeightPager` cold store
     (pinned host memory, or ``.npy`` files under ``disk_dir``) and pages
     them into a device working set bounded by ``budget_bytes`` under
-    ``pager_policy`` (``"pin"``: MRU, or ``"clock"``).  The planner's
-    column and quantised twins are converted once into the cold store, on
-    the device one table at a time, and the planner prices its column
-    copies against the budget (``precision="auto"`` quantises to fit it).
+    ``pager_policy`` (``"pin"``: MRU, then the pager's pass schedule once
+    a call has shown it a pass larger than the budget; or ``"clock"``).
+    The planner's column and quantised twins are converted once into the
+    cold store, on the device one table at a time, and the planner prices
+    its column copies against the budget (``precision="auto"`` quantises
+    to fit it).
     ``shards`` is the reference's tensor-parallel planner axis: ``None``/1
     runs unsharded, ``"auto"`` one shard a host core (the planner clamps
     it), N > 1 splits the eligible matmul sites into N key-range slices
@@ -577,10 +583,8 @@ class RelationalEngine:
                 device=self.device)
         if self.pager is not None:
             self.pager.prefetch(["vocabulary"])
-        outs, env = run_pipeline(self._prefill_pipe(T), env,
-                                 scalars={"cache_position": 0},
-                                 tracer=self.tracer,
-                                 shard_runner=self._shard_runner)
+        outs, env = self._run_pass(self._prefill_pipe(T), env,
+                                   {"cache_position": 0})
         logits = self._final_logits(outs["logits"])
         return {"env": env, "pos": T, "tok": int(np.argmax(logits)),
                 "logits": logits}
@@ -620,13 +624,26 @@ class RelationalEngine:
                 self.spec.rope_theta, device=self.device)
         if self.pager is not None:
             self.pager.prefetch(["vocabulary"])
-        outs, env = run_pipeline(self._prefill_pipe(T, suffix=True), env,
-                                 scalars={"cache_position": boundary},
-                                 tracer=self.tracer,
-                                 shard_runner=self._shard_runner)
+        outs, env = self._run_pass(self._prefill_pipe(T, suffix=True), env,
+                                   {"cache_position": boundary})
         logits = self._final_logits(outs["logits"])
         return {"env": env, "pos": len(prompt),
                 "tok": int(np.argmax(logits)), "logits": logits}
+
+    def _run_pass(self, pipe, env, scalars):
+        """``run_pipeline`` with this engine's tracer and shard runner, as
+        one pass of the pager (paged): every pipeline Scans the same
+        weight tables in the same order, which the pager learns from the
+        marks."""
+        if self.pager is None:
+            return run_pipeline(pipe, env, scalars=scalars,
+                                tracer=self.tracer,
+                                shard_runner=self._shard_runner)
+        self.pager.begin_pass()
+        out = run_pipeline(pipe, env, scalars=scalars, tracer=self.tracer,
+                           shard_runner=self._shard_runner)
+        self.pager.end_pass()
+        return out
 
     def _span(self, name: str, **args):
         """Named ``cat="decoder"`` span (no-op without a tracer): work
@@ -650,10 +667,8 @@ class RelationalEngine:
             np.asarray([pos]), self.spec.head_dim, self.spec.rope_theta,
             device=self.device)
         t0 = time.perf_counter() if self.metrics is not None else 0.0
-        outs, env = run_pipeline(self.decode_pipe, env,
-                                 scalars={"cache_position": pos},
-                                 tracer=self.tracer,
-                                 shard_runner=self._shard_runner)
+        outs, env = self._run_pass(self.decode_pipe, env,
+                                   {"cache_position": pos})
         logits = self._final_logits(outs["logits"])
         if self.metrics is not None:
             self.metrics.histogram(
@@ -870,10 +885,7 @@ class BatchedDecoder:
             metrics.counter("decoder_view_cache_total",
                             "batched cache-view gathers",
                             outcome="hit" if view_hit else "miss").inc()
-        outs, env = run_pipeline(pipe, env,
-                                 scalars={"seq_positions": positions},
-                                 tracer=eng.tracer,
-                                 shard_runner=eng._shard_runner)
+        outs, env = eng._run_pass(pipe, env, {"seq_positions": positions})
         self.decode_calls += 1
         # the tick's only cache mutation is one appended row per sequence
         # at positions[b] — write back just those rows; the updated views

@@ -25,15 +25,22 @@ thread records each entry's event before it publishes the entry, and the
 the budget like hot ones (they are on the device).  Accounting (hits,
 misses, bytes moved, peak held) is the reference's: ``budget_bytes``
 bounds what the pager holds, not what the caching allocator reserves.
+
+A caller that runs the same pass over the tables again and again (the
+relational engine: every call Scans the same weight tables in the same
+order) marks each pass with ``begin_pass()`` and ``end_pass()``.  Under
+``"pin"`` the first marked pass whose tables exceed the budget fixes a
+:class:`PassSchedule`; see :class:`WeightPager`.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
 import threading
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,6 +70,78 @@ def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np_dtype)).dtype
 
 
+def spread_resident(sizes: Sequence[int], budget: int) -> List[bool]:
+    """Which tables of a pass (their bytes, in scan order) stay resident.
+
+    As many bytes as fit beside the pass's largest table (``budget -
+    max(sizes)``, so any streamed table fits beside them), chosen evenly
+    along the pass by cumulative bytes: each table adds its share of the
+    bytes still to place to a credit, and a table is pinned when the
+    credit covers half of it and it fits.  What one walk along the pass
+    leaves (the cap stops a pin the credit asked for) is spread the same
+    way over the tables still streamed, until nothing more fits."""
+    room = budget - max(sizes, default=0)
+    keep = [False] * len(sizes)
+    held = 0
+    while room > held:
+        frac = (room - held) / sum(s for s, k in zip(sizes, keep) if not k)
+        credit, before = 0.0, held
+        for i, size in enumerate(sizes):
+            if keep[i]:
+                continue
+            credit += frac * size
+            if 2 * credit >= size and held + size <= room:
+                keep[i] = True
+                held += size
+                credit -= size
+        if held == before:
+            break
+    return keep
+
+
+@dataclasses.dataclass
+class PassSchedule:
+    """The "pin" schedule of one pass: the tables in scan order, which of
+    them stay resident (``keep``), and the others (``streamed``, in pass
+    order), whose copies are issued ahead of their Scans."""
+    order: List[str]
+    sizes: List[int]
+    keep: frozenset
+    streamed: List[str]
+    pos: Dict[str, int]
+    # for each position of the pass, the index in ``streamed`` of the first
+    # streamed table after it (cyclic: the last wraps to the next pass)
+    next_streamed: List[int]
+
+    @classmethod
+    def plan(cls, order: List[str], sizes: List[int], budget: int
+             ) -> "PassSchedule":
+        flags = spread_resident(sizes, budget)
+        streamed = [n for n, flag in zip(order, flags) if not flag]
+        # past the last streamed table, the first of the next pass
+        nxt, j, left = [0] * len(order), 0, len(streamed)
+        for i in reversed(range(len(order))):
+            nxt[i] = j
+            if not flags[i]:
+                left -= 1
+                j = left
+        return cls(order=order, sizes=sizes,
+                   keep=frozenset(n for n, flag in zip(order, flags)
+                                  if flag),
+                   streamed=streamed,
+                   pos={n: i for i, n in enumerate(order)},
+                   next_streamed=nxt)
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(s for n, s in zip(self.order, self.sizes)
+                   if n in self.keep)
+
+    @property
+    def streamed_bytes(self) -> int:
+        return sum(self.sizes) - self.resident_bytes
+
+
 class WeightPager:
     """Bounded device working set over a cold weight store.
 
@@ -72,7 +151,23 @@ class WeightPager:
                 through the victim slot.  Optimal for the cyclic per-layer
                 scan of LLM decoding (CLOCK/LRU thrash to 0% hit rate on a
                 cycle larger than the budget; MRU retains budget/cycle of
-                it — the paper's disk+mem reuse regime).
+                it — the paper's disk+mem reuse regime).  MRU keeps the
+                pass's prefix, so a call first runs through resident tables
+                with nothing to copy, then waits on the link for the rest.
+                Given the pass (``begin_pass``/``end_pass`` around each
+                call), the first pass whose tables exceed the budget fixes
+                a :class:`PassSchedule` instead: as many resident bytes as
+                MRU keeps (the budget less the pass's largest table) spread
+                evenly along the pass, and each streamed table's copy
+                issued ahead of its Scan, in pass order and on the calling
+                thread, into the budget the resident set leaves: at every
+                ``get`` of a table of the pass and at ``end_pass`` (which
+                starts the next pass's copies).  A copy issued ahead waits
+                in the prefetch buffer, is never evicted, and counts as a
+                prefetch hit when its Scan takes it; streamed tables leave
+                the hot set oldest first, that is, in pass order.  A table
+                outside the pass takes the miss path.  Without a pass, or
+                while the pass fits the budget, "pin" is plain MRU.
 
     ``device`` holds the hot set: the CUDA card unless the caller passes
     ``"cpu"``; without CUDA a CUDA device raises.
@@ -85,7 +180,9 @@ class WeightPager:
     covers the whole ``get``: the wait for the lock, the allocation, the
     evictions, issuing the copy on the pager's stream (and staging a
     memmap through pinned memory) and ordering the reader's stream after
-    it; a prefetch's covers issuing its copy.  Neither covers the copy
+    it; a prefetch's covers issuing its copy (a copy a schedule issues
+    ahead records its span on the calling thread, inside the ``get`` or
+    ``end_pass`` that issued it).  Neither covers the copy
     itself: the stream that reads the table waits on the copy's event on
     the card.  Hits and prefetch hits record no span (``stats`` counts
     them).
@@ -116,6 +213,17 @@ class WeightPager:
         self._prefetched: Dict[str, tuple] = {}  # name -> (tensor, event)
         self._lock = threading.Lock()
         self.stats = PagerStats()
+        # the pass being recorded between begin_pass and end_pass (names
+        # in first-Scan order), then the schedule it fixed
+        self._pass: Optional[Dict[str, None]] = None
+        self.schedule: Optional[PassSchedule] = None
+        # under a schedule: the streamed tables in the hot set that may
+        # leave it, oldest Scan first (name -> bytes), and the position in
+        # the pass of the last get
+        self._fifo: "collections.OrderedDict[str, int]" = \
+            collections.OrderedDict()
+        self._fifo_bytes = 0
+        self._cursor = 0
 
     # -- cold-store management -------------------------------------------------
 
@@ -224,7 +332,33 @@ class WeightPager:
             arr.record_stream(stream)
         return arr
 
+    def _evict(self, key: str) -> None:
+        """Drop a hot entry — remove it by index and shift the hand with
+        the list, so the scan resumes at the element that followed the
+        victim."""
+        idx = self._clock.index(key)
+        arr = self._hot.pop(key)
+        self._ready.pop(key, None)
+        self._held -= _nbytes(arr)
+        self._clock.pop(idx)
+        self._ref.pop(key, None)
+        if key in self._fifo:
+            self._fifo_bytes -= self._fifo.pop(key)
+        if idx < self._hand:
+            self._hand -= 1
+        if self._clock:
+            self._hand %= len(self._clock)
+        else:
+            self._hand = 0
+        self.stats.evictions += 1
+        if self.metrics is not None:
+            self.metrics.counter("pager_evictions_total",
+                                 "hot-set evictions").inc()
+
     def _evict_until(self, need: int) -> None:
+        # under a schedule the streamed tables leave first, in pass order
+        while self._held + need > self.budget and self._fifo:
+            self._evict(next(iter(self._fifo)))
         guard = 0
         while self._held + need > self.budget and self._clock:
             guard += 1
@@ -239,37 +373,25 @@ class WeightPager:
                     self._ref[key] = False
                     self._hand += 1
                     continue
-            # evict — remove by index and shift the hand with the list, so
-            # the scan resumes at the element that followed the victim
-            idx = self._clock.index(key)
-            arr = self._hot.pop(key)
-            self._ready.pop(key, None)
-            self._held -= _nbytes(arr)
-            self._clock.pop(idx)
-            self._ref.pop(key, None)
-            if idx < self._hand:
-                self._hand -= 1
-            if self._clock:
-                self._hand %= len(self._clock)
-            else:
-                self._hand = 0
-            self.stats.evictions += 1
-            if self.metrics is not None:
-                self.metrics.counter("pager_evictions_total",
-                                     "hot-set evictions").inc()
+            self._evict(key)
 
     def get(self, name: str) -> torch.Tensor:
         """Fetch a weight into the hot set (device), paging as needed."""
         t0 = self.tracer._now_us() if self.tracer is not None else 0.0
         cold = None
         with self._lock:
+            if self._pass is not None:
+                self._pass[name] = None
             if name in self._hot:
                 self._ref[name] = True
                 self.stats.hits += 1
                 if self.metrics is not None:
                     self.metrics.counter("pager_hits_total",
                                          "hot-set hits").inc()
-                return self._use(self._hot[name], self._ready[name])
+                arr = self._use(self._hot[name], self._ready[name])
+                if self.schedule is not None:
+                    self._scanned(name, _nbytes(arr))
+                return arr
             if name in self._prefetched:
                 # the prefetch thread already accounted these bytes against
                 # the budget (and evicted to make room) — moving the tensor
@@ -303,9 +425,120 @@ class WeightPager:
                 self.metrics.gauge("pager_held_bytes",
                                    "device hot-set bytes").set(self._held)
             out = self._use(arr, ready)
+            if self.schedule is not None:
+                self._scanned(name, _nbytes(arr))
         if cold is not None and self.tracer is not None:
             self._span(f"pager_fetch:{name}", t0, cold)
         return out
+
+    # -- the pass schedule ("pin") --------------------------------------------
+
+    def begin_pass(self) -> None:
+        """Mark the start of a pass: under "pin", until a schedule is
+        fixed, record the tables it Scans."""
+        if self.policy == "pin" and self.schedule is None:
+            with self._lock:
+                self._pass = {}
+
+    def end_pass(self) -> None:
+        """Mark the end of a pass.  The first recorded pass whose tables
+        exceed the budget fixes the schedule; under a schedule, issue the
+        next pass's first copies, since no table of this one is read
+        again."""
+        if self.policy != "pin":
+            return
+        with self._lock:
+            if self.schedule is not None:
+                self._issue_ahead(self.schedule.next_streamed[self._cursor])
+                return
+            order, self._pass = list(self._pass or ()), None
+            sizes = [_nbytes(self._cold[n]) for n in order]
+            if sum(sizes) > self.budget:
+                self._engage(PassSchedule.plan(order, sizes, self.budget))
+
+    def _engage(self, sched: PassSchedule) -> None:
+        """Fix ``sched``: every hot table it streams leaves, and the
+        resident tables not hot yet are copied in (they are read next
+        pass; they fit, by the plan, unless an entry prefetched outside
+        the schedule holds their room: one that does not fit takes the
+        miss path)."""
+        self.schedule = sched
+        for key in [k for k in self._clock if k not in sched.keep]:
+            self._evict(key)
+        for name, size in zip(sched.order, sched.sizes):
+            if name in sched.keep and name not in self._hot \
+                    and name not in self._prefetched \
+                    and self._held + size <= self.budget:
+                self._issue(name)
+        self._cursor = len(sched.order) - 1
+        self._issue_ahead(0)
+
+    def _scanned(self, name: str, nbytes: int) -> None:
+        """A get of ``name`` under a schedule: a streamed table joins the
+        leaving queue at its end, and the copies that follow it are issued
+        ahead."""
+        sched = self.schedule
+        if name not in sched.keep:
+            if name in self._fifo:
+                self._fifo.move_to_end(name)
+            else:
+                self._fifo[name] = nbytes
+                self._fifo_bytes += nbytes
+        pos = sched.pos.get(name)
+        if pos is not None:
+            self._cursor = pos
+            self._issue_ahead(sched.next_streamed[pos])
+
+    def _publish(self, name: str, arr: torch.Tensor, ready) -> None:
+        """Put a copied entry into the prefetch buffer (under the lock):
+        its bytes are held and loaded."""
+        nb = _nbytes(arr)
+        self._prefetched[name] = (arr, ready)
+        self._held += nb
+        self.stats.peak_bytes = max(self.stats.peak_bytes, self._held)
+        self.stats.bytes_loaded += nb
+        if self.metrics is not None:
+            self.metrics.counter("pager_bytes_loaded_total",
+                                 "bytes moved cold→device").inc(nb)
+            self.metrics.gauge("pager_held_bytes",
+                               "device hot-set bytes").set(self._held)
+
+    def _issue(self, name: str) -> None:
+        """Copy ``name`` into the prefetch buffer now, on this thread."""
+        t0 = self.tracer._now_us() if self.tracer is not None else 0.0
+        cold = self._cold[name]
+        self._publish(name, *self._fetch(cold))
+        if self.tracer is not None:
+            self._span(f"pager_prefetch:{name}", t0, cold)
+
+    def _issue_ahead(self, start: int) -> None:
+        """Issue the copies of the streamed tables from ``start`` (an index
+        in ``streamed``) on, in pass order, while they fit: streamed tables
+        already read leave to make room, oldest first (as after a miss,
+        the pager's reference goes; the reader's holds the bytes until its
+        kernel has run).  One that is still hot is kept for its next
+        Scan."""
+        sched = self.schedule
+        streamed, n = sched.streamed, len(sched.streamed)
+        for k in range(n):
+            name = streamed[(start + k) % n]
+            if name in self._prefetched:
+                continue
+            pos = sched.pos[name]
+            if name in self._hot:
+                if pos == self._cursor:
+                    break  # a whole pass ahead
+                if name in self._fifo:
+                    self._fifo_bytes -= self._fifo.pop(name)
+                continue
+            need = self._held + sched.sizes[pos] - self.budget
+            if need > self._fifo_bytes:
+                break
+            while need > 0:
+                victim = next(iter(self._fifo))
+                need -= self._fifo[victim]
+                self._evict(victim)
+            self._issue(name)
 
     def get_many(self, names: Iterable[str]) -> Dict[str, torch.Tensor]:
         return {n: self.get(n) for n in names}
@@ -317,11 +550,14 @@ class WeightPager:
         like hot-set residents (they ARE on device): the thread evicts
         before each entry is published, and an entry that still cannot fit
         is dropped rather than silently blowing the budget — the later
-        ``get`` then takes the ordinary miss path.
+        ``get`` then takes the ordinary miss path.  Under a schedule the
+        tables of its pass are left to the schedule.
         """
         with self._lock:
+            owned = self.schedule.pos if self.schedule is not None else ()
             names = [n for n in names if n not in self._hot
-                     and n not in self._prefetched and n in self._cold]
+                     and n not in self._prefetched and n in self._cold
+                     and n not in owned]
 
         def run():
             for n in names:
@@ -348,18 +584,7 @@ class WeightPager:
                         # un-evictable prefetches or a huge tensor): drop
                         # this entry instead of overshooting the budget
                         continue
-                    self._prefetched[n] = (arr, ready)
-                    self._held += nb
-                    self.stats.peak_bytes = max(self.stats.peak_bytes,
-                                                self._held)
-                    self.stats.bytes_loaded += _nbytes(cold)
-                    if self.metrics is not None:
-                        self.metrics.counter(
-                            "pager_bytes_loaded_total",
-                            "bytes moved cold→device").inc(_nbytes(cold))
-                        self.metrics.gauge(
-                            "pager_held_bytes",
-                            "device hot-set bytes").set(self._held)
+                    self._publish(n, arr, ready)
 
         t = threading.Thread(target=run, daemon=True)
         t.start()

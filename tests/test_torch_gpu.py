@@ -676,6 +676,43 @@ def test_prefetched_entry_is_waited_on(cuda):
     assert torch.equal(got.cpu(), table)
 
 
+def test_pass_schedule_on_the_card_copies_ahead(cuda):
+    """A paged engine on the card at a budget of half its pass (one plan:
+    row2col off), under the "pin" schedule its first call fixes: the
+    logits of later calls equal the in-memory engine's bit for bit, the
+    batched decoder's tokens too, at least 9 in 10 of the streamed tables
+    come from copies issued ahead (on the pager's stream, waited on by
+    the reader's), and the pager holds no more than the budget."""
+    spec = LlamaSpec(vocab=512, d_model=256, n_layers=4, n_heads=4, n_kv=2,
+                     d_ff=512, rope_theta=10000.0)
+    params = init_llama_params(spec, seed=2)
+    budget = sum(a.nbytes for a in params.values()) // 2
+    kw = dict(chunk_size=16, max_len=32, row2col="off", device=cuda)
+    inm = RelationalEngine(spec, params, **kw)
+    paged = RelationalEngine(spec, params, residency="paged",
+                             budget_bytes=budget, **kw)
+    prompt = [3, 17, 42, 5]
+    a, b = inm.start_session(prompt), paged.start_session(prompt)
+    assert paged.pager.schedule is not None
+    before = vars(paged.pager.stats).copy()
+    for _ in range(4):
+        np.testing.assert_array_equal(b["logits"], a["logits"])
+        inm.session_step(a)
+        paged.session_step(b)
+    decs = [e.batched_decoder(3) for e in (inm, paged)]
+    last = [[d.prefill(p, s) for s, p in enumerate(([1, 2, 3], [9, 8],
+                                                    [7, 6, 5, 4]))]
+            for d in decs]
+    for _ in range(6):
+        assert last[0] == last[1]
+        last = [d.decode([0, 1, 2], t) for d, t in zip(decs, last)]
+    assert last[0] == last[1]
+    stats = paged.pager.stats
+    ahead = stats.prefetch_hits - before["prefetch_hits"]
+    assert ahead >= 0.9 * (ahead + stats.misses - before["misses"]) > 0
+    assert stats.peak_bytes <= budget
+
+
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("residency", ["in_memory", "paged"])
 def test_sharded_engine_on_the_card_matches_unsharded(cuda, n, residency):
@@ -723,7 +760,10 @@ def test_traced_tick_on_the_card_matches_untraced(cuda, residency):
     events on the current stream, read after the call's logits) gives the
     untraced engine's logits and batched tokens bit for bit, records one
     ``cat="step"`` span a pipeline step with a positive duration and
-    ``device_us``, and, paged, one ``pager_fetch:`` span a miss."""
+    ``device_us``, and, paged, the pager's spans: one ``pager_fetch:`` a
+    miss and one ``pager_prefetch:`` a copy its "pin" schedule (fixed by
+    the first call) issued ahead, which after that call are all of
+    them."""
     spec = LlamaSpec(**dict(TINY, n_layers=2))
     params = init_llama_params(spec, seed=0)
     paged = (dict(residency="paged", budget_bytes=1 << 16)
@@ -751,7 +791,8 @@ def test_traced_tick_on_the_card_matches_untraced(cuda, residency):
         traced._prefill_pipe(2).steps) + 3 * per_tick
     assert all(e.dur_us > 0 and e.depth == 0 for e in steps)
     assert all(e.args["device_us"] > 0 for e in steps)
-    fetches = [e for e in tracer.events if e.name.startswith("pager_fetch:")]
+    fetches = [e for e in tracer.events
+               if e.name.startswith(("pager_fetch:", "pager_prefetch:"))]
     assert bool(fetches) == (residency == "paged")
 
 

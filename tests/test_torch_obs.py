@@ -646,22 +646,33 @@ def test_traced_engine_keeps_tokens_and_metrics():
 
 @pytest.mark.parametrize("budget", [40_000, None], ids=["paged", "memory"])
 def test_traced_paged_engine_matches_jax(tmp_path, budget):
-    """A traced paged engine: the step, op and pager spans of a session
-    equal the JAX engine's (the ``vocabulary`` table, which each session
-    prefetches on a thread, is fetched or prefetched by whichever gets
-    there first, so its span is left out), and the tokens are equal."""
+    """A traced paged engine: the step and op spans of a session equal
+    the JAX engine's, and the tokens are equal.  The pager's spans are the
+    port's own: its "pin" schedule (fixed by the first pass over the
+    budget) issues the streamed tables' copies ahead of their Scans, where
+    the reference misses on each, so the port records one
+    ``pager_fetch:`` span a miss and one ``pager_prefetch:`` span a copy
+    issued ahead (the ``vocabulary`` table, which each session prefetches
+    on a thread before the schedule is fixed, is fetched or prefetched by
+    whichever gets there first, so its spans are left out)."""
     knobs = (dict(residency="paged", budget_bytes=budget)
              if budget else {})
     (je, jt), (te, tt) = _traced_engines(**knobs)
     jt.clear()
     tt.clear()
+    misses = te.pager.stats.misses if budget else 0
     toks = [eng.generate([3, 17, 42, 5], 4).tokens for eng in (je, te)]
     assert toks[0] == toks[1]
 
     def keys(tracer):
         return [span_key(e) for e in tracer.events
-                if not e.name.endswith(":vocabulary")
-                and e.name != "device_wait"]
+                if e.cat != "pager" and e.name != "device_wait"]
     assert keys(tt) == keys(jt)
     fetches = [e for e in tt.events if e.name.startswith("pager_fetch:")]
     assert bool(fetches) == bool(budget)
+    if budget:
+        assert len(fetches) == te.pager.stats.misses - misses
+        ahead = [e for e in tt.events if e.name.startswith("pager_prefetch:")
+                 and not e.name.endswith(":vocabulary")]
+        assert te.pager.schedule is not None and ahead
+        assert all(e.cat == "pager" and e.depth == 1 for e in ahead)

@@ -242,6 +242,222 @@ def test_random_sequence_matches_reference(policy, seed):
     assert pagers[1].total_cold_bytes() == pagers[0].total_cold_bytes()
 
 
+@pytest.mark.parametrize("policy,budget", [("clock", 6000), ("pin", 1 << 20)],
+                         ids=["clock", "pin, the pass within the budget"])
+def test_pass_marks_without_a_schedule_match_reference(policy, budget):
+    """Passes marked with ``begin_pass``/``end_pass`` fix no schedule
+    under CLOCK, nor under "pin" while the pass fits the budget: stats,
+    hot sets, clock state and held bytes stay the reference's after every
+    get."""
+    pagers = _pagers(budget, policy=policy)
+    names = [f"t{i}" for i in range(12)]
+    for i, name in enumerate(names):
+        arr = np.arange((16, 100, 400)[i % 3], dtype=np.float32) + i
+        _both(pagers, lambda p: p.add(name, arr))
+    for _ in range(4):
+        pagers[1].begin_pass()
+        for name in names:
+            _both(pagers, lambda p: p.get(name))
+        pagers[1].end_pass()
+        assert pagers[1].schedule is None
+    # CLOCK thrashes on a cycle over the budget; the pass that fits hits
+    assert (pagers[1].stats.hits > 0) == (policy == "pin")
+    assert (pagers[1].stats.evictions > 0) == (policy == "clock")
+
+
+# -- the "pin" schedule of a pass larger than the budget ---------------------
+
+
+def _deepseek_pass():
+    """The tables one engine call Scans at DeepSeek-LLM-7B's widths (30
+    layers), in scan order, as float32 element counts scaled down 2**16,
+    and its 16 GiB budget scaled alike."""
+    d, ff, vocab = 4096, 11008, 102400
+    tables = [("vocabulary", vocab * d)]
+    for layer in range(30):
+        tables += [(f"{n}_L{layer}", k) for n, k in (
+            ("Attention_Norm", d), ("Q_weights", d * d), ("K_weights", d * d),
+            ("V_weights", d * d), ("o_weights", d * d), ("FFN_Norm", d),
+            ("GLU_W1", d * ff), ("GLU_W3", d * ff), ("GLU_W2", d * ff))]
+    tables += [("Final_Norm", d), ("lm_head", vocab * d)]
+    return [(n, max(1, k >> 16)) for n, k in tables], (16 << 30) >> 16
+
+
+def _pass_pager():
+    tables, budget = _deepseek_pass()
+    pager = WeightPager(budget, policy="pin", device="cpu")
+    for i, (name, n) in enumerate(tables):
+        pager.add(name, np.full(n, i, np.float32))
+    return pager, [n for n, _ in tables]
+
+
+def _run_pass(pager, names, marks=True, on_get=None):
+    """One pass of gets (marked or not); the held bytes stay within the
+    budget after every get, the copies issued ahead included."""
+    if marks:
+        pager.begin_pass()
+    for i, name in enumerate(names):
+        got = pager.get(name)
+        assert got[0] == i
+        assert pager.held_bytes <= pager.budget
+        if on_get is not None:
+            on_get(name)
+    if marks:
+        pager.end_pass()
+
+
+def _delta(pager, before):
+    return {k: v - before[k] for k, v in vars(pager.stats).items()}
+
+
+def test_schedule_keeps_the_mru_bytes_spread_along_the_pass():
+    """The first marked pass over the budget fixes a schedule whose
+    resident bytes are within one table of MRU's survivors (a prefix of
+    the pass), spread along the pass: the resident bytes up to each table
+    stay within one table of their even share of the pass's bytes, every
+    layer keeps some of its tables and streams others, and no run of
+    resident tables holds more than twice a layer's mean resident bytes
+    (a run of one table excepted: a table is not split).  (The mean run
+    is no yardstick here: the norms' 16 KiB tables make runs of their
+    own.)"""
+    mru, names = _pass_pager()
+    for _ in range(3):
+        _run_pass(mru, names, marks=False)
+    survivors = []
+    before = mru.stats.hits
+
+    def hit(name):
+        nonlocal before
+        if mru.stats.hits > before:
+            survivors.append(name)
+        before = mru.stats.hits
+    _run_pass(mru, names, marks=False, on_get=hit)
+    pager, _ = _pass_pager()
+    _run_pass(pager, names)
+    sched = pager.schedule
+    assert sched is not None and sched.order == names
+    size = dict(zip(sched.order, sched.sizes))
+    assert abs(sched.resident_bytes - sum(size[n] for n in survivors)) \
+        <= max(sched.sizes)
+    assert sched.resident_bytes <= pager.budget - max(sched.sizes)
+    assert survivors == names[:len(survivors)]
+    share = sched.resident_bytes / sum(sched.sizes)
+    seen = resident = 0
+    for name in names:
+        seen += size[name]
+        resident += size[name] if name in sched.keep else 0
+        assert abs(resident - share * seen) <= max(sched.sizes)
+    for layer in range(30):
+        mine = [n for n in names if n.endswith(f"_L{layer}")]
+        assert any(n in sched.keep for n in mine)
+        assert any(n not in sched.keep for n in mine)
+    runs, run = [], []
+    for name in names + [None]:
+        if name in sched.keep:
+            run.append(size[name])
+        elif run:
+            runs.append(run)
+            run = []
+    per_layer = sched.resident_bytes / 30
+    assert all(sum(r) <= 2 * per_layer for r in runs if len(r) > 1)
+
+
+def test_schedule_issues_every_streamed_copy_ahead():
+    """In the steady state a pass loads the schedule's streamed bytes (MRU's
+    within the largest table), every one a copy issued ahead of its Scan
+    and counted as a prefetch hit there, with no miss; no copy issued
+    ahead leaves the hot set before its Scan, and the streamed tables
+    leave in pass order."""
+    pager, names = _pass_pager()
+    mru, _ = _pass_pager()
+    for _ in range(2):
+        _run_pass(pager, names)
+        _run_pass(mru, names, marks=False)
+    sched = pager.schedule
+    pending, left = set(), []
+    issue, evict, scanned = pager._issue, pager._evict, pager._scanned
+
+    def issued(name):
+        pending.add(name)
+        issue(name)
+
+    def evicted(key):
+        assert key not in pending and key not in sched.keep
+        left.append(key)
+        evict(key)
+
+    def took(name, nbytes):
+        pending.discard(name)
+        scanned(name, nbytes)
+    pager._issue, pager._evict, pager._scanned = issued, evicted, took
+    for _ in range(3):
+        before, mru_before = vars(pager.stats).copy(), vars(mru.stats).copy()
+        _run_pass(pager, names)
+        _run_pass(mru, names, marks=False)
+        got, mru_got = _delta(pager, before), _delta(mru, mru_before)
+        assert got["bytes_loaded"] == sched.streamed_bytes
+        assert abs(got["bytes_loaded"] - mru_got["bytes_loaded"]) \
+            <= max(sched.sizes)
+        assert got["prefetch_hits"] == len(sched.streamed)
+        assert got["misses"] == 0 and mru_got["misses"] > 0
+        assert got["hits"] == len(sched.keep)
+    assert pending and pending <= set(pager._prefetched)
+    order = {n: i for i, n in enumerate(sched.streamed)}
+    steps = [(order[b] - order[a]) % len(order)
+             for a, b in zip(left, left[1:])]
+    assert set(steps) == {1}
+    assert pager.stats.peak_bytes <= pager.budget
+
+
+def test_schedule_leaves_its_pass_to_itself():
+    """Under a schedule ``prefetch`` of a table of the pass issues nothing
+    (the engine's ``vocabulary`` prefetch): the schedule owns its copies;
+    a table outside the pass still takes the miss path."""
+    pager, names = _pass_pager()
+    _run_pass(pager, names)
+    held, stats = pager.held_bytes, vars(pager.stats).copy()
+    pager.prefetch(["vocabulary", "Q_weights_L3"]).join(timeout=30)
+    assert pager.held_bytes == held and vars(pager.stats) == stats
+    pager.add("stray", np.ones(1000, np.float32))
+    pager.get("stray")
+    assert pager.stats.misses == stats["misses"] + 1
+    assert pager.held_bytes <= pager.budget
+    _run_pass(pager, names)
+    assert "stray" not in pager._hot
+
+
+def test_paged_engine_schedule_keeps_tokens_and_copies_ahead():
+    """A paged engine at a budget of half its pass (one plan: row2col
+    off): the first call fixes the schedule; after it the logits and the
+    batched decoder's tokens are the in-memory engine's, at least 9 in 10
+    of the streamed tables come from copies issued ahead, and the pager
+    holds no more than the budget."""
+    total = sum(a.nbytes for a in PARAMS.values())
+    kw = dict(chunk_size=8, max_len=32, row2col="off", device="cpu")
+    inm = RelationalEngine(T_SPEC, PARAMS, **kw)
+    te = RelationalEngine(T_SPEC, PARAMS, residency="paged",
+                          budget_bytes=total // 2, **kw)
+    a, b = inm.start_session(PROMPT), te.start_session(PROMPT)
+    assert te.pager.schedule is not None
+    before = vars(te.pager.stats).copy()
+    for _ in range(3):
+        np.testing.assert_array_equal(b["logits"], a["logits"])
+        inm.session_step(a)
+        te.session_step(b)
+    decs = [e.batched_decoder(3) for e in (inm, te)]
+    last = [[d.prefill(p, s) for s, p in enumerate(([3, 17, 42], [9, 8],
+                                                    [5, 1, 7, 2]))]
+            for d in decs]
+    for _ in range(5):
+        assert last[0] == last[1]
+        last = [d.decode([0, 1, 2], t) for d, t in zip(decs, last)]
+    assert last[0] == last[1]
+    got = _delta(te.pager, before)
+    assert got["prefetch_hits"] >= 0.9 * (got["prefetch_hits"]
+                                          + got["misses"]) > 0
+    assert te.pager.stats.peak_bytes <= total // 2
+
+
 def test_pad_to_pads_the_cold_entry():
     pagers = _pagers(1 << 20)
     x = np.arange(10, dtype=np.float32).reshape(2, 5)
@@ -348,6 +564,23 @@ def _scans(stats):
     return stats["hits"] + stats["prefetch_hits"] + stats["misses"]
 
 
+def _assert_pass_bytes(te, je, ts, js):
+    """The port's "pin" schedule (fixed by the first pass over the
+    budget) against the reference's MRU on one more decode step of the
+    sessions ``ts`` and ``js``: the port loads the schedule's streamed
+    bytes, every one a copy issued ahead, and the reference loads them
+    within the pass's largest table."""
+    sched = te.pager.schedule
+    assert sched is not None
+    tb, jb = te.pager.stats.bytes_loaded, je.pager.stats.bytes_loaded
+    misses = te.pager.stats.misses
+    assert te.session_step(ts) == je.session_step(js)
+    got = te.pager.stats.bytes_loaded - tb
+    assert got == sched.streamed_bytes
+    assert abs(got - (je.pager.stats.bytes_loaded - jb)) <= max(sched.sizes)
+    assert te.pager.stats.misses == misses
+
+
 def test_relational_paged_matches_direct(tmp_path):
     """The reference's Disk+mem system test (memmap cold store, a bounded
     working set) through both engines: identical tokens, logits within
@@ -362,16 +595,18 @@ def test_relational_paged_matches_direct(tmp_path):
     jr, tr = je.generate(prompt, max_new_tokens=6), te.generate(
         prompt, max_new_tokens=6)
     assert tr.tokens == jr.tokens
-    np.testing.assert_allclose(te.start_session(prompt)["logits"],
-                               je.start_session(prompt)["logits"],
-                               rtol=1e-5, atol=1e-5)
+    ts, js = te.start_session(prompt), je.start_session(prompt)
+    np.testing.assert_allclose(ts["logits"], js["logits"], rtol=1e-5,
+                               atol=1e-5)
     assert tr.pager_stats["misses"] > 0          # it really paged
     assert tr.pager_stats["evictions"] > 0       # budget enforced
     assert tr.peak_working_set <= 64 * 1024
     # the vocabulary prefetch races the first Scan in both packages, so a
-    # hit may land on either side of it; the Scans and bytes do not move
+    # hit may land on either side of it; the Scans do not move
     assert _scans(tr.pager_stats) == _scans(jr.pager_stats)
-    assert tr.pager_stats["bytes_loaded"] == jr.pager_stats["bytes_loaded"]
+    # the bytes a pass: the port's schedule against the reference's MRU
+    _assert_pass_bytes(te, je, ts, js)
+    assert te.pager.stats.peak_bytes <= 64 * 1024
 
 
 # the paged cases of tests/test_planner.py: (knobs, budget)
@@ -405,6 +640,12 @@ def test_paged_plans_and_tokens_match_jax(tmp_path, knobs, disk):
     assert got.pager_stats is not None
     assert _scans(got.pager_stats) == _scans(want.pager_stats)
     assert got.peak_working_set <= kw["budget_bytes"]
+    # only the budget below the pass fixes a "pin" schedule
+    assert (te.pager.schedule is not None) == ("budget_bytes" in knobs)
+    if te.pager.schedule is not None:
+        _assert_pass_bytes(te, je, te.start_session(PROMPT),
+                           je.start_session(PROMPT))
+        assert te.pager.stats.peak_bytes <= kw["budget_bytes"]
     tp, jp = te._residency_pool, je._residency_pool
     assert (tp.budget_bytes, tp.spent, tp.tables) == \
         (jp.budget_bytes, jp.spent, jp.tables)
