@@ -25,7 +25,7 @@ from typing import Dict, List
 
 import torch
 
-from portbench.model import Shapes
+from portbench.model import architecture
 
 
 def broken(rec: Dict) -> bool:
@@ -74,7 +74,7 @@ def judge(cfg: Dict, seed: int, records: List[Dict], device,
           control: bool = False) -> Dict:
     """The program's ``verdict`` and, with ``control``, the control's
     under ``"control"``."""
-    s = Shapes.from_config(cfg)
+    s = architecture(cfg).shapes(cfg)
     ref = importlib.import_module(f"portbench.references.{cfg['reference']}")
     picked = finished(records)
     served = sum(len(r["tokens"]) for r in picked)

@@ -1,11 +1,10 @@
-"""The least time of the window's projection work (``counts``: each
-projection of each layer and the LM head at the rows the work needs)
-over the device time of K1's kernels (``kernels/csrc/chunked_matmul.cu``,
-matched by name in the trace)."""
+"""The least time of the window's projection work (the architecture's
+``decode_least_s`` and ``prefill_least_s``: for a Llama, each projection
+of each layer and the LM head at the rows the work needs) over the
+device time of K1's kernels (``kernels/csrc/chunked_matmul.cu``, matched
+by name in the trace)."""
 
 import re
-
-from portbench import counts
 
 K1 = re.compile(r"\b(gemv_kernel|gemv_col_kernel|gemm_kernel|"
                 r"splitk_reduce_kernel)\b")
@@ -16,9 +15,9 @@ def read(w):
         return None
     k1_s = sum(s for name, s in w.device["by_name"].items()
                if K1.search(name))
-    least = (sum(counts.decode_least_s(w.shapes, rows, w.peaks)
+    least = (sum(w.arch.decode_least_s(w.shapes, rows, w.peaks)
                  for _, _, rows, _ in w.decodes)
-             + sum(counts.prefill_least_s(w.shapes, ctx, cached, w.peaks)
+             + sum(w.arch.prefill_least_s(w.shapes, ctx, cached, w.peaks)
                    for _, _, ctx, cached in w.prefills))
     if not k1_s or not least:
         return None

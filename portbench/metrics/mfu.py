@@ -1,15 +1,13 @@
-"""Model FLOPs of the work served in the window (``counts``: uncached
-prefill tokens and decode tokens, the LM head, attention over the keys
-each token reads) over the window's length times the card's float32
-peak."""
-
-from portbench import counts
+"""Model FLOPs of the work served in the window (the architecture's
+``decode_flops`` and ``prefill_flops``: for a Llama, uncached prefill
+tokens and decode tokens, the LM head, attention over the keys each
+token reads) over the window's length times the card's float32 peak."""
 
 
 def read(w):
-    flops = (sum(counts.decode_flops(w.shapes, rows, keys)
+    flops = (sum(w.arch.decode_flops(w.shapes, rows, keys)
                  for _, _, rows, keys in w.decodes)
-             + sum(counts.prefill_flops(w.shapes, ctx, cached)
+             + sum(w.arch.prefill_flops(w.shapes, ctx, cached)
                    for _, _, ctx, cached in w.prefills))
     if not flops or not w.gate_s:
         return None

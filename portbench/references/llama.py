@@ -11,8 +11,9 @@ cache, no batching: every sequence runs through the whole model from its
 first token.
 
 It runs layer by layer over all the sequences it is given and makes each
-layer's weights again from the seed (``model.block_weights``), so it
-holds one layer at a time.  It imports nothing of the program.
+layer's weights again from the seed (``model.block_weights`` over the
+blocks of ``archs/llama.py``), so it holds one layer at a time.  It
+imports nothing of the program.
 
 ``precision="f32"`` turns TF32 off.  ``precision="tf32"`` is the control,
 the precision just below the configuration's: TF32 matrix products on a
@@ -27,7 +28,8 @@ from typing import Callable, Dict, List, Sequence
 
 import torch
 
-from portbench.model import Shapes, block_weights
+from portbench.archs import llama
+from portbench.model import block_weights
 
 
 def _round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -71,7 +73,7 @@ def _rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
 
 
-def _rope_tables(s: Shapes, n: int, device):
+def _rope_tables(s: llama.Shapes, n: int, device):
     half = s.head_dim // 2
     inv = 1.0 / (s.rope_theta ** (torch.arange(half, dtype=torch.float32,
                                                device=device) / half))
@@ -80,7 +82,8 @@ def _rope_tables(s: Shapes, n: int, device):
     return torch.cos(ang), torch.sin(ang)
 
 
-def _layer(s: Shapes, i: int, w: Dict[str, torch.Tensor], h, cos, sin, mm):
+def _layer(s: llama.Shapes, i: int, w: Dict[str, torch.Tensor], h, cos,
+           sin, mm):
     T = h.shape[0]
     dh, H, Hkv = s.head_dim, s.heads, s.kv_heads
     x = _rms_norm(h, w[f"Attention_Norm_L{i}"], s.eps)
@@ -103,7 +106,7 @@ def _layer(s: Shapes, i: int, w: Dict[str, torch.Tensor], h, cos, sin, mm):
 
 
 @torch.no_grad()
-def logits(s: Shapes, seed: int, seqs: Sequence[Sequence[int]],
+def logits(s: llama.Shapes, seed: int, seqs: Sequence[Sequence[int]],
            first: Sequence[int], device, precision: str = "f32"
            ) -> List[torch.Tensor]:
     """For each token sequence, the logits at its positions ``first[j]``
@@ -112,14 +115,14 @@ def logits(s: Shapes, seed: int, seqs: Sequence[Sequence[int]],
     device = torch.device(device)
     mm = _matmul(precision, device)
     with matmul_precision(precision, device):
-        emb = block_weights(s, seed, "embed", device)["vocabulary"]
+        emb = block_weights(llama, s, seed, "embed", device)["vocabulary"]
         hs = [emb[torch.as_tensor(list(q), device=device)] for q in seqs]
         del emb
         cos, sin = _rope_tables(s, max(len(q) for q in seqs), device)
         for i in range(s.layers):
-            w = block_weights(s, seed, f"layer{i}", device)
+            w = block_weights(llama, s, seed, f"layer{i}", device)
             hs = [_layer(s, i, w, h, cos, sin, mm) for h in hs]
             del w
-        w = block_weights(s, seed, "head", device)
+        w = block_weights(llama, s, seed, "head", device)
         return [mm(_rms_norm(h[f:], w["Final_Norm"], s.eps), w["lm_head"].T)
                 for h, f in zip(hs, first)]

@@ -3,8 +3,9 @@
     python portbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1> [--control 1]
 
-The cell's configuration (``configs/``) gives the model's shapes and the
-engine's settings; its traffic (``traffic/``) the clients and the sizes.
+The cell's configuration (``configs/``) gives the model's shapes, its
+architecture (``archs/<model>.py``) and the engine's settings; its
+traffic (``traffic/``) the clients and the sizes.
 The run builds the port's server on the CUDA card with weights drawn from
 the seed, warms up every plan the traffic touches, starts the load
 generator (``loadgen.py``) in a child process and measures its window.
@@ -48,7 +49,6 @@ if __name__ == "__main__":
 import torch  # noqa: E402
 
 from portbench import checks, counts, devtrace, trafficgen  # noqa: E402
-from portbench.model import Shapes  # noqa: E402
 from portbench.window import Window, reader  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -164,7 +164,7 @@ def run_cell(cfg, traffic: str, seed: int, seconds: float, trace: bool,
     t_ref = time.monotonic()
     judged = checks.judge(cfg, seed, records, device, control=control)
     log(f"reference took {time.monotonic() - t_ref:.1f} s")
-    w = Window(shapes=Shapes.from_config(cfg), peaks=counts.peaks(),
+    w = Window(arch=system.arch, shapes=system.shapes, peaks=counts.peaks(),
                seconds=seconds, t_open=edges["t_open"],
                t_close=edges["t_close"], requests=records, setup_s=setup_s,
                prefills=watch.prefills, decodes=watch.decodes,

@@ -3,11 +3,13 @@
 ``System`` makes ``AsyncLLMServer`` over ``RelationalEngine`` (and
 through it ``BatchedDecoder`` and ``ContinuousBatcher``) from a
 configuration's ``engine`` settings, with the weights drawn from the
-seed; ``warm_up`` serves requests through the batcher before the server
-listens, so every plan the window touches is compiled; ``Watch`` records
-each prefill and decode call the batcher makes and, in a traced run,
-profiles the card between the window's edges.  The program's tracer and drift watchdog stay
-off: the tracer's step spans synchronise the card, and a re-plan is not a
+seed; the configuration's architecture (``archs/<model>.py``) builds the
+engine and sizes the page pool.  ``warm_up`` serves requests through the
+batcher before the server listens, so every plan the window touches is
+compiled; ``Watch`` records each prefill and decode call the batcher
+makes and, in a traced run, profiles the card between the window's
+edges.  The program's tracer and drift watchdog stay off: the tracer,
+forced on, costs 3-13 % of tokens/s on the card, and a re-plan is not a
 steady state.  Everything else is as the port's server entry
 (``examples/serve_http_torch.py``) builds it: the scheduler's
 ``PagedKVCache`` on the card, the prefix store's default bound.
@@ -22,7 +24,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from portbench.model import SeededWeights, Shapes
+from portbench.model import SeededWeights, architecture
 
 
 class GcPauses:
@@ -131,34 +133,17 @@ class Watch:
 
 class System:
     def __init__(self, cfg: Dict, seed: int, device):
-        from repro_torch.core.llama_graph import LlamaSpec
-        from repro_torch.serving.engine import RelationalEngine
-        from repro_torch.serving.kvcache import PagedKVCache, PagedKVConfig
+        from repro_torch.serving.kvcache import PagedKVCache
         from repro_torch.serving.server import AsyncLLMServer, ServerConfig
 
         self.device = torch.device(device)
-        self.shapes = s = Shapes.from_config(cfg)
+        self.arch = a = architecture(cfg)
+        self.shapes = s = a.shapes(cfg)
         e = cfg["engine"]
         self.slots = e["slots"]
-        max_len = cfg["max_position_embeddings"]
-        spec = LlamaSpec(vocab=s.vocab, d_model=s.d, n_layers=s.layers,
-                         n_heads=s.heads, n_kv=s.kv_heads, d_ff=s.ff,
-                         rope_theta=s.rope_theta, eps=s.eps)
-        knobs = dict(chunk_size=e["chunk_size"], max_len=max_len,
-                     row2col=e["row2col"], cache_layout=e["cache_layout"],
-                     precision=e["precision"], device=self.device)
-        if e["residency"] == "paged":
-            knobs.update(residency="paged", budget_bytes=e["budget_bytes"],
-                         pager_policy=e["pager_policy"])
-        self.engine = RelationalEngine(
-            spec, SeededWeights(s, seed, self.device), **knobs)
-        page = e["kv_page_tokens"]
-        per_seq = -(-max_len // page) + 1
-        kv = PagedKVCache(PagedKVConfig(
-            n_layers=s.layers, n_kv=s.kv_heads, head_dim=s.head_dim,
-            page_size=page, n_pages=self.slots * per_seq,
-            max_pages_per_seq=per_seq), max_seqs=self.slots,
-            device=self.device)
+        self.engine, kv_cfg = a.build(
+            s, cfg, SeededWeights(a, s, seed, self.device), self.device)
+        kv = PagedKVCache(kv_cfg, max_seqs=self.slots, device=self.device)
         self.server = AsyncLLMServer(self.engine, kv, ServerConfig(
             host="127.0.0.1", port=0, model_id=cfg["name"],
             max_batch=self.slots, max_queue_depth=4 * self.slots,
@@ -189,6 +174,7 @@ class System:
                        pager_hits=pager.stats.hits,
                        pager_misses=pager.stats.misses,
                        pager_prefetch_hits=pager.stats.prefetch_hits)
+        out.update(self.arch.counters(self.engine))
         return out
 
     def warm_up(self, reqs) -> None:

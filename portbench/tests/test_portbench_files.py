@@ -1,6 +1,7 @@
-"""The benchmark's files: every cell finds its configuration, traffic and
-metric readers by name, ``BENCHMARK.json`` keeps to the contract's form,
-and nothing under ``portbench/`` imports the JAX package or JAX."""
+"""The benchmark's files: every cell finds its configuration, traffic,
+architecture and metric readers by name, ``BENCHMARK.json`` keeps to the
+contract's form, nothing under ``portbench/`` imports the JAX package or
+JAX, and only the Llama architecture and its reference know Llama."""
 
 import ast
 import json
@@ -40,6 +41,7 @@ def test_cell_finds_its_files(cell):
     assert cfg["name"] == conf["name"] and cfg["source"] == conf["source"]
     assert (BENCH_DIR / "traffic" / f"{c['traffic']}.json").is_file()
     assert (BENCH_DIR / "references" / f"{cfg['reference']}.py").is_file()
+    assert (BENCH_DIR / "archs" / f"{cfg['model']}.py").is_file()
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         if "workloads" not in m or cell in m["workloads"]:
             assert (BENCH_DIR / "metrics" / f"{m['name']}.py").is_file()
@@ -115,3 +117,38 @@ def test_reference_imports_nothing_of_the_program(path):
                    "numpy", "portbench"}, top
     assert not any(m.startswith(("portbench.system", "portbench.run"))
                    for m in _imports(path))
+
+
+# the Llama graph's tensors, as archs/llama.py names them
+LLAMA_TENSOR = re.compile(r"Q_weights|K_weights|V_weights|o_weights|GLU_W[123]"
+                          r"|Attention_Norm|FFN_Norm|Final_Norm|lm_head")
+LLAMA_HOME = {Path("archs/llama.py"), Path("references/llama.py")}
+
+
+def _outside_llama():
+    return [p for p in _sources()
+            if p.relative_to(BENCH_DIR) not in LLAMA_HOME
+            and "tests" not in p.relative_to(BENCH_DIR).parts]
+
+
+@pytest.mark.parametrize("path", _outside_llama(),
+                         ids=lambda p: str(p.relative_to(BENCH_DIR)))
+def test_only_the_llama_architecture_knows_llama(path):
+    """The harness reaches the model through the configuration's
+    ``archs/<model>.py`` alone: no other module imports the Llama graph,
+    ``LlamaSpec`` or the Llama architecture, or names a Llama tensor."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [f"{node.module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Name):
+            names = [node.id]
+        elif isinstance(node, ast.Attribute):
+            names = [node.attr]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not LLAMA_TENSOR.search(node.value), (path, node.value)
+        for n in names:
+            assert "llama_graph" not in n and "LlamaSpec" not in n, (path, n)
+            assert n != "portbench.archs.llama", (path, n)

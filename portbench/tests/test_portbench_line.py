@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 
 from portbench import check_line, counts, devtrace, run
-from portbench.model import Shapes
+from portbench.model import architecture
 from portbench.window import Window
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -18,7 +18,7 @@ NS = 1_000_000_000
 
 
 def _window(cfg, trace: bool) -> Window:
-    s = Shapes.from_config(cfg)
+    model = architecture(cfg)
     base = 10 * NS
     decodes = [(base + i * NS // 10, base + i * NS // 10 + 60_000_000, 16,
                 16 * 700) for i in range(100)]
@@ -47,10 +47,10 @@ def _window(cfg, trace: bool) -> Window:
         calls = [("decode", a, b) for a, b, *_ in decodes] + \
             [("prefill", a, b) for a, b, *_ in prefills]
         dev = devtrace.reduce(events, base, base + 10 * NS, calls)
-    return Window(shapes=s, peaks=counts.peaks(), seconds=10.0,
-                  t_open=100.0, t_close=110.0, requests=reqs, setup_s=61.5,
-                  prefills=prefills, decodes=decodes, edges=edges,
-                  gate_s=10.0, device=dev)
+    return Window(arch=model, shapes=model.shapes(cfg), peaks=counts.peaks(),
+                  seconds=10.0, t_open=100.0, t_close=110.0, requests=reqs,
+                  setup_s=61.5, prefills=prefills, decodes=decodes,
+                  edges=edges, gate_s=10.0, device=dev)
 
 
 CASES = [(c["name"], t) for c in BENCH["workloads"] for t in (0, 1)]

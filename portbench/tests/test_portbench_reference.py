@@ -1,6 +1,7 @@
 """The plain reference against a hand-written float64 loop, and against
 the port's engine on the CPU; the TF32 rounding of the control."""
 
+import json
 import math
 import sys
 from pathlib import Path
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 from portbench import checks
-from portbench.model import SeededWeights, Shapes, block_weights
+from portbench.archs import llama
+from portbench.model import SeededWeights, block_weights
 from portbench.references import llama as ref
 
 TINY = dict(vocab_size=7, hidden_size=4, num_hidden_layers=1,
@@ -18,10 +20,10 @@ TINY = dict(vocab_size=7, hidden_size=4, num_hidden_layers=1,
             intermediate_size=3, rope_theta=10000.0, rms_norm_eps=1e-5)
 
 
-def _loop_logits(s: Shapes, seed: int, toks):
+def _loop_logits(s: llama.Shapes, seed: int, toks):
     """Llama by hand, one scalar at a time, in float64."""
     w = {k: v.double().numpy() for b in ("embed", "layer0", "head")
-         for k, v in block_weights(s, seed, b, "cpu").items()}
+         for k, v in block_weights(llama, s, seed, b, "cpu").items()}
     T, H, dh, g = len(toks), s.heads, s.head_dim, s.heads // s.kv_heads
 
     def norm(x, wt):
@@ -70,7 +72,7 @@ def _loop_logits(s: Shapes, seed: int, toks):
 
 
 def test_reference_matches_hand_loop():
-    s = Shapes.from_config(TINY)
+    s = llama.shapes(TINY)
     toks = [1, 4, 2, 6, 6, 0]
     got = ref.logits(s, 3, [toks], [0], "cpu")[0].double().numpy()
     np.testing.assert_allclose(got, _loop_logits(s, 3, toks), atol=2e-6)
@@ -98,12 +100,12 @@ def test_reference_matches_port_engine():
     cfg = dict(TINY, vocab_size=320, hidden_size=64, num_hidden_layers=2,
                num_attention_heads=4, num_key_value_heads=2,
                intermediate_size=96)
-    s = Shapes.from_config(cfg)
+    s = llama.shapes(cfg)
     spec = LlamaSpec(vocab=s.vocab, d_model=s.d, n_layers=s.layers,
                      n_heads=s.heads, n_kv=s.kv_heads, d_ff=s.ff,
                      rope_theta=s.rope_theta, eps=s.eps)
-    eng = RelationalEngine(spec, SeededWeights(s, 11, "cpu"), chunk_size=16,
-                           max_len=48, device="cpu")
+    eng = RelationalEngine(spec, SeededWeights(llama, s, 11, "cpu"),
+                           chunk_size=16, max_len=48, device="cpu")
     prompt = np.random.default_rng(1).integers(0, s.vocab, 24).tolist()
     toks = eng.generate(prompt, 10).tokens
     lg = ref.logits(s, 11, [prompt + toks[:-1]], [len(prompt) - 1], "cpu")
@@ -111,20 +113,22 @@ def test_reference_matches_port_engine():
 
 
 CONF = Path(__file__).resolve().parents[1] / "configs"
+# the configurations this file's Llama-shaped SMALL model stands for
+LLAMA_CONFS = [p.stem for p in sorted(CONF.glob("*.json"))
+               if json.loads(p.read_text())["model"] == "llama"]
 SMALL = dict(TINY, vocab_size=4096, hidden_size=256, num_hidden_layers=4,
              num_attention_heads=4, num_key_value_heads=2,
              intermediate_size=512)
 
 
-@pytest.mark.parametrize("conf", [p.stem for p in sorted(CONF.glob("*.json"))])
+@pytest.mark.parametrize("conf", LLAMA_CONFS)
 def test_control_fails_the_limit(conf):
     """The control, the reference in TF32 (rounded operands on the CPU),
     read at 2048 positions of a small model of the configuration's
     family: its widest gap exceeds the configuration's limit, where the
     float32 reference's own is 0."""
-    import json
     cfg = json.loads((CONF / f"{conf}.json").read_text())
-    s = Shapes.from_config(SMALL)
+    s = llama.shapes(SMALL)
     g = torch.Generator().manual_seed(0)
     seqs = [torch.randint(0, s.vocab, (128,), generator=g).tolist()
             for _ in range(16)]
@@ -135,7 +139,8 @@ def test_control_fails_the_limit(conf):
         cfg["checks"]["max_logit_gap"]
 
 
-def _greedy_records(s: Shapes, seed: int, n: int, prompt: int, out: int):
+def _greedy_records(s: llama.Shapes, seed: int, n: int, prompt: int,
+                    out: int):
     """``n`` streams as the load generator records them, each a random
     prompt and ``out`` tokens decoded greedily by the float32 reference."""
     g = torch.Generator().manual_seed(seed)
@@ -150,17 +155,17 @@ def _greedy_records(s: Shapes, seed: int, n: int, prompt: int, out: int):
              "done": True} for q in seqs]
 
 
-@pytest.mark.parametrize("conf", [p.stem for p in sorted(CONF.glob("*.json"))])
+@pytest.mark.parametrize("conf", LLAMA_CONFS)
 def test_judge_finds_the_control_not_correct(conf):
     """The verdict that decides ``correct``, on greedy streams of a small
     model of the configuration's family as many positions long as the
     configuration asks: the program's tokens pass it, the control (the
     reference in TF32 in the program's place) does not, and a token
     altered fails it too."""
-    import json
     cfg = json.loads((CONF / f"{conf}.json").read_text())
-    small = dict(SMALL, reference=cfg["reference"], checks=cfg["checks"])
-    s = Shapes.from_config(small)
+    small = dict(SMALL, model=cfg["model"], reference=cfg["reference"],
+                 checks=cfg["checks"])
+    s = llama.shapes(small)
     need = cfg["checks"]["min_served_positions"]
     recs = _greedy_records(s, 5, 32, 64, -(-need // 32))
     out = checks.judge(small, 5, recs, "cpu", control=True)

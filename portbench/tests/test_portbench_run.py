@@ -3,14 +3,20 @@ Llama-shaped model behind the port's HTTP server, the load generator in
 its child process, the window, the drain after it and the reference.
 Sound, the run is ``correct``; with the timed path broken underneath (a token altered where
 it is produced, a decode step that leaves the caches unchanged, half the
-batch left out) it is not."""
+batch left out) it is not.  An architecture registered from a test, with
+no file under ``portbench/``, reaches the line's counters and ``mfu``."""
 
+import hashlib
 import json
+import sys
+import types
 from pathlib import Path
 
 import pytest
 
 from portbench import check_line, run
+from portbench.archs import llama
+from portbench.window import Window
 
 ROOT = Path(__file__).resolve().parents[2]
 DEEPSEEK = json.loads((ROOT / "portbench" / "configs" /
@@ -19,7 +25,8 @@ TINY = {"name": "tiny", "vocab_size": 512, "hidden_size": 64,
         "num_hidden_layers": 2, "num_attention_heads": 4,
         "num_key_value_heads": 2, "intermediate_size": 128,
         "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
-        "max_position_embeddings": 96, "reference": "llama",
+        "max_position_embeddings": 96, "model": "llama",
+        "reference": "llama",
         "engine": {"residency": "in_memory", "slots": 4, "chunk_size": 16,
                    "row2col": "auto", "cache_layout": "auto",
                    "precision": "f32", "kv_page_tokens": 16,
@@ -90,3 +97,61 @@ def test_run_on_cpu(fault, tmp_path):
                  "per_layer": []}
         assert check_line.problems(json.dumps(line), bench, "tiny", False,
                                    platform="cpu") == []
+
+
+def _files(root: Path):
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).digest()
+            for p in sorted(root.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_new_architecture_needs_no_edit(monkeypatch, tmp_path):
+    """``toy`` is Llama with a counter and a ``decode_flops`` of its own,
+    found by the name in the configuration: the line carries its counter
+    (the harness takes it at both edges of the window) and ``mfu`` comes
+    from its counts, with no file under ``portbench/`` added or changed."""
+    toy = types.ModuleType("portbench.archs.toy")
+    for name in ("shapes", "block_names", "block_spec", "build",
+                 "prefill_flops", "decode_least_s", "prefill_least_s"):
+        setattr(toy, name, getattr(llama, name))
+    snapshots = []
+
+    def counters(engine):
+        snapshots.append(type(engine).__name__)
+        return {"toy_snapshots": len(snapshots)}
+
+    def decode_flops(s, rows, keys):
+        return 3.0 * llama.decode_flops(s, rows, keys)
+    toy.counters, toy.decode_flops = counters, decode_flops
+    monkeypatch.setitem(sys.modules, "portbench.archs.toy", toy)
+    windows = []
+
+    def window(**kw):
+        windows.append(Window(**kw))
+        return windows[-1]
+    monkeypatch.setattr(run, "Window", window)
+
+    bench_dir = ROOT / "portbench"
+    before = _files(bench_dir)
+    traffic = tmp_path / "tiny.json"
+    traffic.write_text(json.dumps(TRAFFIC))
+    line = run.run_cell(dict(TINY, model="toy"), str(traffic), 3_141_592_653,
+                        2.5, False, E2E + [("mfu", "%")], device="cpu")
+    after = _files(bench_dir)
+    assert after == before, sorted(set(after.items()) ^ set(before.items()))
+    assert not (bench_dir / "archs" / "toy.py").exists()
+    assert line["correct"] is True, line["checks"]
+    assert line["counters"]["toy_snapshots"] == 1, line["counters"]
+    assert snapshots == ["RelationalEngine"] * 2, snapshots
+    w, = windows
+    assert w.arch is toy and w.decodes
+
+    def mfu(decode):
+        flops = (sum(decode(w.shapes, rows, keys)
+                     for _, _, rows, keys in w.decodes)
+                 + sum(llama.prefill_flops(w.shapes, ctx, cached)
+                       for _, _, ctx, cached in w.prefills))
+        return 100.0 * flops / (w.gate_s * w.peaks["f32_flops_per_s"])
+    got = line["metrics"]["mfu"]["value"]
+    assert got == pytest.approx(mfu(decode_flops), rel=1e-12)
+    assert got > mfu(llama.decode_flops)

@@ -13,16 +13,16 @@ import dataclasses
 import importlib.util
 import statistics
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
-
-from portbench.model import Shapes
+from types import ModuleType
+from typing import Any, Callable, Dict, List, Optional
 
 HERE = Path(__file__).resolve().parent
 
 
 @dataclasses.dataclass
 class Window:
-    shapes: Shapes
+    arch: ModuleType               # archs/<model>.py: the work counts
+    shapes: Any                    # arch.shapes(cfg)
     peaks: Dict[str, float]
     seconds: float
     t_open: float                  # client clock (time.monotonic)
